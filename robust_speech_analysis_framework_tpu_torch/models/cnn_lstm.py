@@ -1,0 +1,234 @@
+"""CNN-LSTM sequence classifier (PyTorch, inference).
+
+Counterpart of ``robust_speech_analysis_framework_tpu/models/cnn_lstm.py``:
+two residual Conv1d blocks → time max-pool ×2 → 2-layer bidirectional LSTM →
+attention pooling → linear head. Public tensors are feature-last
+``(B, T, C)`` as in the JAX package; the conv blocks transpose to torch's
+``(B, C, T)`` inside.
+
+Parameter names follow the reference PyTorch checkpoints
+(``final_tuned_cnn_lstm_*.pt``), so those load with ``load_state_dict``:
+``res_block{1,2}.{conv1,bn1,conv2,bn2,shortcut.0,shortcut.1}``,
+``lstm.{weight_ih,weight_hh,bias_ih,bias_hh}_l{k}[_reverse]`` (gate order
+i, f, g, o), ``attention_pooling.attention_weights`` and ``fc``.
+
+The biLSTM does not run ``nn.LSTM``: its input projections are one matmul
+per layer and both directions' recurrences go through one launch of the
+CUDA kernel (:func:`..ops.cuda.lstm.lstm_scan_grouped`) on the card, or its
+plain version on the CPU. Like the TPU kernel, the recurrence does not
+freeze state past ``lengths``; nothing downstream reads those frames
+(attention masks them, the backward direction reads the reversed valid
+prefix, and padding is trailing).
+
+This slice is inference only: BatchNorm uses running statistics and dropout
+is the identity. Training arrives with the training slice, so ``forward``
+refuses a module in train mode.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..device import DeviceLike, resolve_device
+from ..ops.cuda.lstm import lstm_scan_grouped
+from .init import init_weights_
+
+
+def get_activation_fn(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
+    """silu/gelu lookup; gelu is the exact erf form (torch's default)."""
+    if name == "silu":
+        return F.silu
+    if name == "gelu":
+        return F.gelu
+    raise ValueError(f"Unsupported activation function: {name}")
+
+
+def _mask_pad(h: torch.Tensor, lengths: Optional[torch.Tensor]) -> torch.Tensor:
+    """Zero frames at or past each length; h is (B, T, C)."""
+    if lengths is None:
+        return h
+    t = torch.arange(h.shape[1], device=h.device)
+    return h.masked_fill(t[None, :, None] >= lengths[:, None, None], 0.0)
+
+
+class ResidualBlock(nn.Module):
+    """Two k=3 same-padded convs with BN, plus a 1×1 conv+BN skip when the
+    channel counts differ; post-add activation. Operates on (B, T, C)."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
+                 activation_fn: str = "silu"):
+        super().__init__()
+        pad = kernel_size // 2
+        self.conv1 = nn.Conv1d(in_channels, out_channels, kernel_size, padding=pad)
+        self.bn1 = nn.BatchNorm1d(out_channels)
+        self.conv2 = nn.Conv1d(out_channels, out_channels, kernel_size, padding=pad)
+        self.bn2 = nn.BatchNorm1d(out_channels)
+        if in_channels != out_channels:
+            self.shortcut = nn.Sequential(
+                nn.Conv1d(in_channels, out_channels, 1), nn.BatchNorm1d(out_channels)
+            )
+        else:
+            self.shortcut = nn.Identity()
+        self.act = get_activation_fn(activation_fn)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.transpose(1, 2)
+        h = self.act(self.bn1(self.conv1(x)))
+        h = self.bn2(self.conv2(h))
+        return self.act(h + self.shortcut(x)).transpose(1, 2)
+
+
+class BiLSTM(nn.Module):
+    """Stacked bidirectional LSTM holding ``nn.LSTM``'s parameter names."""
+
+    def __init__(self, input_dim: int, hidden_dim: int, num_layers: int = 2):
+        super().__init__()
+        self.hidden_dim = hidden_dim
+        self.num_layers = num_layers
+        for layer in range(num_layers):
+            in_dim = input_dim if layer == 0 else 2 * hidden_dim
+            for sfx in (f"l{layer}", f"l{layer}_reverse"):
+                self.register_parameter(
+                    f"weight_ih_{sfx}", nn.Parameter(torch.empty(4 * hidden_dim, in_dim)))
+                self.register_parameter(
+                    f"weight_hh_{sfx}", nn.Parameter(torch.empty(4 * hidden_dim, hidden_dim)))
+                self.register_parameter(
+                    f"bias_ih_{sfx}", nn.Parameter(torch.empty(4 * hidden_dim)))
+                self.register_parameter(
+                    f"bias_hh_{sfx}", nn.Parameter(torch.empty(4 * hidden_dim)))
+
+    def _direction(self, layer: int, reverse: bool):
+        sfx = f"l{layer}" + ("_reverse" if reverse else "")
+        p = lambda n: getattr(self, f"{n}_{sfx}")  # noqa: E731
+        return p("weight_ih"), p("weight_hh"), p("bias_ih") + p("bias_hh")
+
+    def forward(self, x: torch.Tensor, lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+        h = x
+        b, t, _ = x.shape
+        if lengths is None:
+            idx = None
+        else:
+            # Reverse only the valid prefix of each sequence (clipped gather).
+            steps = torch.arange(t, device=x.device)
+            idx = (lengths[:, None] - 1 - steps[None, :]).clamp(0, t - 1)
+        for layer in range(self.num_layers):
+            if idx is None:
+                bwd_in = torch.flip(h, dims=(1,))
+            else:
+                bwd_in = torch.gather(h, 1, idx[:, :, None].expand(-1, -1, h.shape[2]))
+            wx_f, wh_f, bias_f = self._direction(layer, False)
+            wx_b, wh_b, bias_b = self._direction(layer, True)
+            # both directions' input projections in one batched matmul
+            inputs = torch.stack([h, bwd_in])  # (2, B, T, C)
+            wx = torch.stack([wx_f.t(), wx_b.t()])  # (2, C, 4H)
+            gates = torch.matmul(inputs.reshape(2, b * t, -1), wx)
+            gates = gates + torch.stack([bias_f, bias_b])[:, None, :]
+            gates = gates.reshape(2, b, t, -1).permute(2, 0, 1, 3).contiguous()  # (T, 2, B, 4H)
+            wh = torch.stack([wh_f.t(), wh_b.t()])  # (2, H, 4H)
+            hs = lstm_scan_grouped(gates, wh)  # (T, 2, B, H)
+            fwd = hs[:, 0].transpose(0, 1)
+            bwd = hs[:, 1].transpose(0, 1)
+            if idx is None:
+                bwd = torch.flip(bwd, dims=(1,))
+            else:
+                bwd = torch.gather(bwd, 1, idx[:, :, None].expand(-1, -1, bwd.shape[2]))
+            h = torch.cat([fwd, bwd], dim=-1)
+        return h
+
+
+class AttentionPooling(nn.Module):
+    """Learned softmax pooling over time; padded steps masked to -inf."""
+
+    def __init__(self, input_dim: int):
+        super().__init__()
+        self.attention_weights = nn.Linear(input_dim, 1)
+
+    def forward(self, x: torch.Tensor, lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+        scores = self.attention_weights(x)  # (B, T, 1)
+        if lengths is not None:
+            t = torch.arange(x.shape[1], device=x.device)
+            mask = t[None, :, None] < lengths[:, None, None]
+            scores = scores.masked_fill(~mask, float("-inf"))
+        probs = torch.softmax(scores, dim=1)
+        return torch.sum(x * probs, dim=1)  # (B, 2H)
+
+
+class CNNLSTM(nn.Module):
+    """Residual CNN front end + biLSTM + attention pooling classifier."""
+
+    def __init__(
+        self,
+        input_dim: int = 768,
+        num_classes: int = 2,
+        cnn_out_channels: int = 128,
+        lstm_hidden_dim: int = 128,
+        lstm_layers: int = 2,
+        dropout_rate: float = 0.5,
+        activation_fn: str = "silu",
+    ):
+        super().__init__()
+        self.input_dim = input_dim
+        self.num_classes = num_classes
+        self.cnn_out_channels = cnn_out_channels
+        self.lstm_hidden_dim = lstm_hidden_dim
+        self.lstm_layers = lstm_layers
+        self.dropout_rate = dropout_rate  # kept for checkpoints; inference ignores it
+        self.activation_fn = activation_fn
+        self.res_block1 = ResidualBlock(input_dim, cnn_out_channels, activation_fn=activation_fn)
+        self.res_block2 = ResidualBlock(
+            cnn_out_channels, cnn_out_channels, activation_fn=activation_fn)
+        self.lstm = BiLSTM(cnn_out_channels, lstm_hidden_dim, lstm_layers)
+        self.attention_pooling = AttentionPooling(2 * lstm_hidden_dim)
+        self.fc = nn.Linear(2 * lstm_hidden_dim, num_classes)
+
+    def forward(self, x: torch.Tensor, lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """(B, T, input_dim) [+ lengths (B,)] → logits (B, num_classes)."""
+        if self.training:
+            raise RuntimeError(
+                "CNNLSTM is inference-only in this port: call .eval() first"
+            )
+        h = _mask_pad(x, lengths)
+        h = _mask_pad(self.res_block1(h), lengths)
+        # Non-overlapping max-pool halves T (odd last frame dropped).
+        h = F.max_pool1d(h.transpose(1, 2), kernel_size=2, stride=2).transpose(1, 2)
+        if lengths is not None:
+            # clamp to >= 1: a 0/1-frame sequence would otherwise mask every
+            # attention score to -inf and NaN its row through softmax
+            lengths = torch.clamp(lengths // 2, min=1)
+        h = _mask_pad(h, lengths)
+        h = _mask_pad(self.res_block2(h), lengths)
+        h = self.lstm(h, lengths)
+        return self.fc(self.attention_pooling(h, lengths))
+
+
+def stability_probe(model: CNNLSTM) -> torch.Tensor:
+    """Per-input-dim importance: mean |res_block1.conv1 weight| over output
+    channels and taps → (input_dim,)."""
+    return model.res_block1.conv1.weight.detach().abs().mean(dim=(0, 2))
+
+
+def build_cnn_lstm(
+    input_dim: int = 768,
+    cnn_out_channels: int = 128,
+    lstm_hidden_dim: int = 128,
+    lstm_layers: int = 2,
+    num_classes: int = 2,
+    activation_fn: str = "silu",
+    dropout_rate: float = 0.5,
+    seed: int = 0,
+    device: DeviceLike = "cuda",
+) -> CNNLSTM:
+    """A seeded random-init CNNLSTM in eval mode on ``device``."""
+    dev = resolve_device(device)
+    model = CNNLSTM(
+        input_dim=input_dim, num_classes=num_classes,
+        cnn_out_channels=cnn_out_channels, lstm_hidden_dim=lstm_hidden_dim,
+        lstm_layers=lstm_layers, dropout_rate=dropout_rate,
+        activation_fn=activation_fn,
+    )
+    init_weights_(model, torch.Generator().manual_seed(seed))
+    return model.to(dev).eval()

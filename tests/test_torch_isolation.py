@@ -1,0 +1,92 @@
+"""The port stands alone: no JAX, no JAX package, CUDA by default.
+
+Every module of ``robust_speech_analysis_framework_tpu_torch`` is imported in
+a fresh interpreter, which must end with neither ``jax``, ``flax``,
+``optax`` nor the JAX package in ``sys.modules``. Entry points built without
+``device=`` use the card, and raise where there is none.
+"""
+
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from robust_speech_analysis_framework_tpu_torch.device import resolve_device
+from robust_speech_analysis_framework_tpu_torch.features.wav2vec2 import Wav2Vec2Extractor
+from robust_speech_analysis_framework_tpu_torch.models.cnn_lstm import build_cnn_lstm
+from robust_speech_analysis_framework_tpu_torch.models.wav2vec2 import Wav2Vec2Config
+from robust_speech_analysis_framework_tpu_torch.serving import Predictor
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_IMPORT_ALL = r"""
+import importlib, pkgutil, sys
+import robust_speech_analysis_framework_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+banned = ("jax", "jaxlib", "flax", "optax", "robust_speech_analysis_framework_tpu")
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in banned)
+print(len(names), leaked)
+sys.exit(1 if leaked else 0)
+"""
+
+SMALL = dict(
+    hidden_size=32, num_layers=1, num_heads=4, intermediate_size=64,
+    conv_dim=(16,) * 7, pos_conv_kernel=16, pos_conv_groups=4,
+)
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    return env
+
+
+def test_port_imports_no_jax():
+    proc = subprocess.run(
+        [sys.executable, "-c", _IMPORT_ALL], cwd=REPO, env=_env(),
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    n_modules = int(proc.stdout.split()[0])
+    assert n_modules >= 15  # every module of the slice was imported
+
+
+def test_chip_smoke_fails_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device: chip_smoke.py would run in full")
+    proc = subprocess.run(
+        [sys.executable, "chip_smoke.py"], cwd=REPO, env=_env(),
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
+
+
+@pytest.mark.parametrize("entry", ["extractor", "cnn_lstm", "predictor", "device"])
+def test_entry_points_default_to_cuda(entry):
+    build = {
+        "extractor": lambda: Wav2Vec2Extractor(
+            config=Wav2Vec2Config(**SMALL), allow_random_init=True).device,
+        "cnn_lstm": lambda: next(
+            build_cnn_lstm(input_dim=8, cnn_out_channels=8, lstm_hidden_dim=8).parameters()
+        ).device,
+        "predictor": lambda: Predictor(
+            build_cnn_lstm(input_dim=8, cnn_out_channels=8, lstm_hidden_dim=8, device="cpu")
+        ).device,
+        "device": lambda: resolve_device(),
+    }[entry]
+    if torch.cuda.is_available():
+        assert build().type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build()
+
+
+def test_cpu_must_be_asked_for():
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError):
+        resolve_device("meta")

@@ -1,0 +1,202 @@
+"""Port's Wav2Vec2 encoder and extractor vs the JAX package's, on the CPU.
+
+A small config (hidden 32, 2 layers, 4 heads, conv_dim 16, positional
+kernel 16 / groups 4) with perturbed JAX weights carried over by
+``wav2vec2_state_dict_from_flat``. Tolerance: atol 1e-4 on hidden states
+(float32 conv stack + 2 post-norm layers, different summation orders;
+LayerNorm keeps the values near unit scale).
+"""
+
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+import torch
+
+from robust_speech_analysis_framework_tpu.features.wav2vec2 import (
+    Wav2Vec2Extractor as JaxExtractor,
+)
+from robust_speech_analysis_framework_tpu.models.wav2vec2 import (
+    Wav2Vec2Config as JaxConfig,
+    Wav2Vec2Model as JaxModel,
+    port_hf_state_dict as jax_port_hf,
+)
+from robust_speech_analysis_framework_tpu.train.checkpoints import flatten_params
+from robust_speech_analysis_framework_tpu_torch.features.wav2vec2 import Wav2Vec2Extractor
+from robust_speech_analysis_framework_tpu_torch.models.wav2vec2 import (
+    Wav2Vec2Config,
+    Wav2Vec2Model,
+    port_hf_state_dict,
+)
+from robust_speech_analysis_framework_tpu_torch.models.weights import (
+    wav2vec2_state_dict_from_flat,
+)
+
+ATOL = 1e-4
+SMALL = dict(
+    hidden_size=32, num_layers=2, num_heads=4, intermediate_size=64,
+    conv_dim=(16,) * 7, pos_conv_kernel=16, pos_conv_groups=4,
+)
+
+
+@pytest.fixture(scope="module")
+def jax_params():
+    model = JaxModel(JaxConfig(**SMALL))
+    params = model.init(jax.random.PRNGKey(0), jnp.zeros((1, 4000)))
+    rng = np.random.default_rng(0)
+    return jax.tree.map(
+        lambda a: np.asarray(a) + 0.05 * rng.normal(size=a.shape).astype(np.float32), params
+    )
+
+
+@pytest.fixture(scope="module")
+def port_model(jax_params):
+    model = Wav2Vec2Model(Wav2Vec2Config(**SMALL))
+    model.load_state_dict(wav2vec2_state_dict_from_flat(flatten_params(jax_params)))
+    return model.eval()
+
+
+def test_ragged_batch_matches_jax_on_valid_frames(jax_params, port_model):
+    rng = np.random.default_rng(1)
+    wav = (rng.normal(size=(3, 8000)) * 0.1).astype(np.float32)
+    lengths = np.array([8000, 5000, 3300], np.int32)
+    for i, n in enumerate(lengths):
+        wav[i, n:] = 0.0
+    ref, ref_lens = JaxModel(JaxConfig(**SMALL)).apply(
+        jax_params, jnp.asarray(wav), lengths=jnp.asarray(lengths)
+    )
+    with torch.no_grad():
+        ours, our_lens = port_model(torch.from_numpy(wav), torch.from_numpy(lengths))
+    np.testing.assert_array_equal(our_lens.numpy(), np.asarray(ref_lens))
+    for i, n in enumerate(np.asarray(ref_lens)):
+        np.testing.assert_allclose(ours[i, :n].numpy(), np.asarray(ref)[i, :n], atol=ATOL)
+
+
+def test_unmasked_forward_matches_jax(jax_params, port_model):
+    wav = (np.random.default_rng(2).normal(size=(2, 6000)) * 0.1).astype(np.float32)
+    ref, _ = JaxModel(JaxConfig(**SMALL)).apply(jax_params, jnp.asarray(wav))
+    with torch.no_grad():
+        ours, lens = port_model(torch.from_numpy(wav))
+    assert lens is None
+    np.testing.assert_allclose(ours.numpy(), np.asarray(ref), atol=ATOL)
+
+
+def _synthetic_hf_state_dict(rng, prefix=""):
+    d, f, k, groups = 32, 64, 16, 4
+    sd = {}
+
+    def put(name, shape):
+        sd[prefix + name] = (rng.normal(size=shape) * 0.1).astype(np.float32)
+
+    for i in range(7):
+        put(f"feature_extractor.conv_layers.{i}.conv.weight",
+            (16, 1 if i == 0 else 16, JaxConfig().conv_kernel[i]))
+    put("feature_extractor.conv_layers.0.layer_norm.weight", (16,))
+    put("feature_extractor.conv_layers.0.layer_norm.bias", (16,))
+    put("feature_projection.layer_norm.weight", (16,))
+    put("feature_projection.layer_norm.bias", (16,))
+    put("feature_projection.projection.weight", (d, 16))
+    put("feature_projection.projection.bias", (d,))
+    put("encoder.pos_conv_embed.conv.weight_g", (1, 1, k))
+    put("encoder.pos_conv_embed.conv.weight_v", (d, d // groups, k))
+    put("encoder.pos_conv_embed.conv.bias", (d,))
+    put("encoder.layer_norm.weight", (d,))
+    put("encoder.layer_norm.bias", (d,))
+    put("masked_spec_embed", (d,))  # unused by inference: must be ignored
+    for i in range(2):
+        pre = f"encoder.layers.{i}."
+        for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            put(pre + f"attention.{proj}.weight", (d, d))
+            put(pre + f"attention.{proj}.bias", (d,))
+        for ln in ("layer_norm", "final_layer_norm"):
+            put(pre + f"{ln}.weight", (d,))
+            put(pre + f"{ln}.bias", (d,))
+        put(pre + "feed_forward.intermediate_dense.weight", (f, d))
+        put(pre + "feed_forward.intermediate_dense.bias", (f,))
+        put(pre + "feed_forward.output_dense.weight", (d, f))
+        put(pre + "feed_forward.output_dense.bias", (d,))
+    return sd
+
+
+@pytest.mark.parametrize("prefix", ["", "wav2vec2."], ids=["backbone", "ctc_head"])
+def test_port_hf_state_dict_matches_jax(prefix):
+    hf = _synthetic_hf_state_dict(np.random.default_rng(3), prefix)
+    carried = wav2vec2_state_dict_from_flat(flatten_params(jax_port_hf(hf)))
+    ours = port_hf_state_dict(hf)
+    assert set(ours) == set(carried)
+    for key in ours:
+        torch.testing.assert_close(ours[key], carried[key], rtol=0, atol=1e-7)
+    model = Wav2Vec2Model(Wav2Vec2Config(**SMALL))
+    model.load_state_dict(ours)  # strict: every parameter named and shaped
+    with pytest.raises(ValueError, match="feature_extractor"):
+        port_hf_state_dict({"foo.weight": np.zeros(3)})
+
+
+def test_extract_sequences_matches_jax(jax_params):
+    rng = np.random.default_rng(4)
+    waves = {
+        "short.wav": (rng.normal(size=4800) * 0.1).astype(np.float32),  # 0.3 s: skipped
+        "one.wav": (rng.normal(size=19200) * 0.1).astype(np.float32),  # 1.2 s: one chunk
+        "long.wav": (rng.normal(size=152000) * 0.1).astype(np.float32),  # 9.5 s: 3 chunks
+    }
+    jax_ex = JaxExtractor(params=jax_params, config=JaxConfig(**SMALL), batch_size=3)
+    sd = wav2vec2_state_dict_from_flat(flatten_params(jax_params))
+    ex = Wav2Vec2Extractor(params=sd, config=Wav2Vec2Config(**SMALL), batch_size=3, device="cpu")
+    assert ex.pretrained
+    ref = jax_ex.extract_sequences(waves, verbose=False)
+    ours = ex.extract_sequences(waves, verbose=False)
+    assert sorted(ours) == sorted(ref) == ["long.wav", "one.wav"]
+    cfg = Wav2Vec2Config(**SMALL)
+    # overlaps are kept: 5 s + 5 s + 1.5 s chunks
+    assert ours["long.wav"].shape == (2 * cfg.output_length(80000) + cfg.output_length(24000), 32)
+    for name in ref:
+        assert ours[name].dtype == np.float32
+        np.testing.assert_allclose(ours[name], ref[name], atol=ATOL)
+    assert ex.extract_sequences({"short.wav": waves["short.wav"]}, verbose=False) == {}
+
+
+def test_extractor_guards():
+    with pytest.raises(ValueError, match="without weights"):
+        Wav2Vec2Extractor(config=Wav2Vec2Config(**SMALL), device="cpu")
+    with pytest.raises(ValueError, match="overlap_seconds"):
+        Wav2Vec2Extractor(config=Wav2Vec2Config(**SMALL), overlap_seconds=5.0,
+                          allow_random_init=True, device="cpu")
+    with pytest.warns(UserWarning, match="RANDOM"):
+        a = Wav2Vec2Extractor(config=Wav2Vec2Config(**SMALL), allow_random_init=True,
+                              seed=5, device="cpu")
+    with pytest.warns(UserWarning):
+        b = Wav2Vec2Extractor(config=Wav2Vec2Config(**SMALL), allow_random_init=True,
+                              seed=5, device="cpu")
+    assert not a.pretrained
+    for va, vb in zip(a.model.state_dict().values(), b.model.state_dict().values()):
+        assert torch.equal(va, vb)
+
+
+def test_from_hf_checkpoint_matches_transformers_and_jax(tmp_path):
+    """A tiny HF checkpoint on disk loads into the port; its hidden states
+    match ``transformers`` itself and its sequences match the JAX extractor."""
+    from transformers import Wav2Vec2Config as HFConfig, Wav2Vec2Model as HFModel
+
+    torch.manual_seed(0)
+    hf = HFModel(HFConfig(
+        hidden_size=32, num_hidden_layers=2, num_attention_heads=4, intermediate_size=64,
+        conv_dim=(16,) * 7, num_conv_pos_embeddings=16, num_conv_pos_embedding_groups=4,
+        feat_extract_norm="group", do_stable_layer_norm=False,
+    )).eval()
+    hf.save_pretrained(str(tmp_path))
+    ex = Wav2Vec2Extractor.from_hf_checkpoint(
+        str(tmp_path), config=Wav2Vec2Config(**SMALL), batch_size=2, device="cpu")
+    wav = (np.random.default_rng(5).normal(size=19200) * 0.1).astype(np.float32)
+    with torch.no_grad():
+        ref = hf(torch.from_numpy(wav)[None]).last_hidden_state[0].numpy()
+        ours, _ = ex.model(torch.from_numpy(wav)[None])
+    np.testing.assert_allclose(ours[0].numpy(), ref, atol=ATOL)
+
+    jax_ex = JaxExtractor.from_hf_checkpoint(str(tmp_path), config=JaxConfig(**SMALL),
+                                             batch_size=2)
+    waves = {"one.wav": wav}
+    np.testing.assert_allclose(
+        ex.extract_sequences(waves, verbose=False)["one.wav"],
+        jax_ex.extract_sequences(waves, verbose=False)["one.wav"], atol=ATOL,
+    )
