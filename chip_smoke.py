@@ -13,7 +13,12 @@ without them. Phases, each of which raises on failure:
 3. kernels: K1 (lstm_scan_grouped) and K2 (lstm_scan) against their plain
    PyTorch versions on the card at a ragged shape, the flagship batch shape
    and the serving shape, with their times beside the plain version's, the
-   cuDNN ``nn.LSTM`` yardstick and the card's bound;
+   cuDNN ``nn.LSTM`` yardstick and the card's bound; then the training
+   kernels K3 (lstm_scan_fwd_res_grouped: hs, cs), K4
+   (lstm_scan_bwd_grouped: dgates, dWh) and the dWh kernel
+   (lstm_dwh_grouped) the same way at a ragged shape and the training shape
+   (T=4096, G=2, B=8, H=128), with cuDNN's biLSTM forward (K3) and backward
+   (K4) as yardsticks;
 4. flagship forward: CNNLSTM(768, 128, 128), batch 128 × 4480 × 768,
    lengths 4378; two kernel launches per forward; logits of two rows agree
    with the same model on the CPU; median time and a profiler breakdown;
@@ -22,7 +27,19 @@ without them. Phases, each of which raises on failure:
    one predict_files call (16 kHz and 8 kHz WAVs) and one predict_sequence;
    the launch counters are reset just before and read just after; one
    request's Wav2Vec2 sequence and logits agree with the same predictor on
-   the CPU.
+   the CPU;
+6. training (the second main path): fold 0 of StratifiedKFold(5, seed 42)
+   over a seeded synthetic corpus of 40 Wav2Vec2-width sequences (1000 to
+   4378 frames), the inner 80/20 split, ``train_model`` of the flagship
+   CNNLSTM(768, 128, 128) (batch 8, Adam 1e-3, dropout 0.5, plateau decay,
+   early stop, best-weight restore) for 3 epochs, then ``evaluate_model``
+   and the fold's metrics; counters reset just before and read just after
+   (two K3, two K4 and two dWh launches per train step, two K1 per eval
+   batch); loss per epoch, step time, audio-seconds trained per second,
+   peak memory, and a profile of one train step;
+7. train-step parity: one step of the flagship model (B=2, T=512, dropout
+   off) on the card and through the plain path on the CPU from the same
+   weights: loss, gradients, updated parameters and BatchNorm statistics.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.
@@ -43,25 +60,49 @@ import numpy as np
 import torch
 
 from robust_speech_analysis_framework_tpu_torch.audio.io import write_wav
+from robust_speech_analysis_framework_tpu_torch.eval.metrics import classification_metrics
+from robust_speech_analysis_framework_tpu_torch.eval.splits import (
+    StratifiedKFold,
+    train_test_indices,
+)
 from robust_speech_analysis_framework_tpu_torch.features.wav2vec2 import Wav2Vec2Extractor
-from robust_speech_analysis_framework_tpu_torch.models.cnn_lstm import build_cnn_lstm
+from robust_speech_analysis_framework_tpu_torch.models.cnn_lstm import (
+    CNNLSTM,
+    build_cnn_lstm,
+    stability_probe,
+)
 from robust_speech_analysis_framework_tpu_torch.models.wav2vec2 import Wav2Vec2Config
 from robust_speech_analysis_framework_tpu_torch.ops.cuda import _build
 from robust_speech_analysis_framework_tpu_torch.ops.cuda import lstm as lstm_ops
 from robust_speech_analysis_framework_tpu_torch.serving import Predictor
+from robust_speech_analysis_framework_tpu_torch.train import loops
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
 
 KERNEL_TOL = 1e-5  # fp32 kernel vs fp32 plain version: summation order only
+DWH_TOL = 1e-4  # dWh sums T·B = 32k products per element: relative to its scale
 FLAGSHIP_TOL = 1e-4  # logits after convs + 2 biLSTM layers over 2240 steps
 SERVING_TOL = 1e-3  # logits after a 12-layer random-init encoder + classifier
+# one train step card vs CPU: loss and BN statistics absolute; gradients
+# relative to each tensor's largest element; parameters after one Adam step
+# of lr 1e-3 absolute (1 % of a step). Adam's first step is lr·g/(|g| + eps):
+# at the default eps 1e-8 an element with a gradient near 1e-8 turns a
+# rounding difference in g into a large difference in its step, so the
+# parity step takes eps 1e-3, where the step is at most as sensitive as g.
+PARITY_LOSS_TOL, PARITY_GRAD_TOL, PARITY_PARAM_TOL = 1e-5, 1e-4, 1e-5
+PARITY_ADAM_EPS = 1e-3
 
 FRAMES_PER_SECOND = 49.9
 SEQ_LEN, PAD_LEN, DIM, BATCH = 4378, 4480, 768, 128
 
+TRAIN_SHAPE = (4096, 2, 8, 128)  # T, G, B, H: a 4378-frame batch after the max-pool
+N_SEQS, MIN_FRAMES = 40, 1000
+TRAIN_EPOCHS = 3
+
 SOURCE = "robust_speech_analysis_framework_tpu_torch/csrc/lstm_scan.cu"
+TRAIN_SOURCE = "robust_speech_analysis_framework_tpu_torch/csrc/lstm_train.cu"
 PALLAS = "robust_speech_analysis_framework_tpu/ops/pallas/lstm.py"
 
 
@@ -83,15 +124,37 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def lstm_bound_ms(t: int, g: int, b: int, h: int) -> tuple:
-    """Least time for the recurrence: gates in, Wh in, hs out once; per row
-    and step a (H × 4H) matvec (2 ops a term), the gate add (4H) and the
-    cell update (about 5H), at the fp32 CUDA-core peak."""
-    bytes_moved = 4 * (t * g * b * 4 * h + g * h * 4 * h + t * g * b * h)
-    ops = t * g * b * (2 * h * 4 * h + 4 * h + 5 * h)
+def bound_ms(bytes_moved: float, ops: float) -> tuple:
+    """The larger of bytes over the HBM rate and operations over the fp32
+    CUDA-core peak, with which of the two it is."""
     t_bytes = bytes_moved / PEAK_HBM_BYTES * 1e3
     t_ops = ops / PEAK_FP32_FLOPS * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def lstm_bound_ms(t: int, g: int, b: int, h: int, save_c: bool = False) -> tuple:
+    """Least time for the recurrence (K1/K2; K3 with ``save_c``): gates in,
+    Wh in, hs (and cs) out once; per row and step a (H × 4H) matvec (2 ops a
+    term), the gate add (4H) and the cell update (about 5H)."""
+    n_out = 2 if save_c else 1
+    bytes_moved = 4 * (t * g * b * 4 * h + g * h * 4 * h + n_out * t * g * b * h)
+    return bound_ms(bytes_moved, t * g * b * (2 * h * 4 * h + 4 * h + 5 * h))
+
+
+def lstm_bwd_bound_ms(t: int, g: int, b: int, h: int) -> tuple:
+    """Least time for the reverse sweep with dWh (K4): gates, hs, cs, dhout
+    and Wh in, dgates and dWh out once; per row and step three (H × 4H)
+    products (z recomputed, dz @ Whᵀ, the dWh term) and about 25H of
+    elementwise work."""
+    bytes_moved = 4 * (2 * t * g * b * 4 * h + 3 * t * g * b * h + 2 * g * h * 4 * h)
+    return bound_ms(bytes_moved, t * g * b * (3 * 2 * h * 4 * h + 25 * h))
+
+
+def dwh_bound_ms(t: int, g: int, b: int, h: int) -> tuple:
+    """Least time for dWh alone: hs and dgates in, dWh out once; one
+    (H × 4H) outer product per row and step after the first."""
+    bytes_moved = 4 * (t * g * b * h + t * g * b * 4 * h + g * h * 4 * h)
+    return bound_ms(bytes_moved, 2 * (t - 1) * g * b * h * 4 * h)
 
 
 def kernel_phase(dev: torch.device) -> dict:
@@ -185,15 +248,15 @@ def flagship_phase(dev: torch.device) -> None:
     profile_forward(model, x, lengths)
 
 
-def profile_forward(model, x, lengths) -> None:
-    """Device time by kernel over one flagship forward (torch.profiler)."""
+def profile_device(label: str, fn, top: int) -> None:
+    """Device time by kernel over one call of ``fn`` (torch.profiler), with
+    the device's idle share of the window."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        with torch.inference_mode():
-            model(x, lengths)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
 
@@ -207,10 +270,20 @@ def profile_forward(model, x, lengths) -> None:
     if total_ms == 0:
         log("[profile] the profiler recorded no device time")
         return
-    log(f"[profile] one flagship forward: {wall_ms:.3f} ms wall, {total_ms:.3f} ms device "
+    log(f"[profile] {label}: {wall_ms:.3f} ms wall, {total_ms:.3f} ms device "
         f"(device idle {max(0.0, 1 - total_ms / wall_ms):.1%} of the window)")
-    for e in rows[:8]:
+    for e in rows[:top]:
         log(f"[profile]   {device_us(e) / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:90]}")
+
+
+def profile_forward(model, x, lengths) -> None:
+    """Device time by kernel over one flagship forward."""
+
+    def forward():
+        with torch.inference_mode():
+            model(x, lengths)
+
+    profile_device("one flagship forward", forward, 8)
 
 
 def serving_phase(dev: torch.device, tmp: str) -> dict:
@@ -232,15 +305,15 @@ def serving_phase(dev: torch.device, tmp: str) -> dict:
     write_wav(paths[1], speechlike(9.0, 8000), 8000)
     sequence = rng.normal(size=(SEQ_LEN, DIM)).astype(np.float32)
 
-    lstm_ops.lstm_scan_grouped.launches = 0
-    lstm_ops.lstm_scan.launches = 0
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
     preds = {f"predict({k})": predictor.predict(w) for k, w in waves.items()}
     for name, pred in predictor.predict_files(paths).items():
         preds[f"predict_files({name})"] = pred
     preds["predict_sequence(4378x768)"] = predictor.predict_sequence(sequence)
     torch.cuda.synchronize()
-    launches = {"lstm_scan_grouped": lstm_ops.lstm_scan_grouped.launches,
-                "lstm_scan": lstm_ops.lstm_scan.launches}
+    launches = {name: fn.launches for name, fn in counters.items()}
 
     for name, pred in preds.items():
         log(f"[serving] {name}: {pred.label} p(Patient)={pred.probability:.6f} "
@@ -248,8 +321,9 @@ def serving_phase(dev: torch.device, tmp: str) -> dict:
         if pred.logits.shape != (2,) or not np.isfinite(pred.logits).all():
             raise AssertionError(f"bad logits for {name}")
     log(f"[serving] kernel launches on the main path: {launches}")
-    if launches["lstm_scan_grouped"] != 2 * len(preds):
-        raise AssertionError("the serving path did not run K1 for every biLSTM layer")
+    if launches["lstm_scan_grouped"] != 2 * len(preds) or sum(launches.values()) != 2 * len(preds):
+        raise AssertionError("the serving path did not run K1, and only K1, for every "
+                             "biLSTM layer")
 
     cpu_extractor = Wav2Vec2Extractor(
         params={k: v.cpu() for k, v in extractor.model.state_dict().items()},
@@ -270,6 +344,234 @@ def serving_phase(dev: torch.device, tmp: str) -> dict:
     return launches
 
 
+def train_kernel_phase(dev: torch.device) -> dict:
+    """K3, K4 and the dWh kernel against their plain versions; times at the
+    training shape beside cuDNN's biLSTM forward and backward."""
+    gen = torch.Generator(device=dev).manual_seed(2)
+    records = {name: {"max_abs_err": 0.0} for name in
+               ("lstm_scan_fwd_res_grouped", "lstm_scan_bwd_grouped", "lstm_dwh_grouped")}
+    for label, (t, g, b, h) in {"ragged": (37, 2, 3, 8), "training": TRAIN_SHAPE}.items():
+        gates = torch.randn(t, g, b, 4 * h, device=dev, generator=gen) * 0.5
+        wh = (torch.rand(g, h, 4 * h, device=dev, generator=gen) * 2 - 1) / h**0.5
+        dhout = torch.randn(t, g, b, h, device=dev, generator=gen)
+        hs, cs = lstm_ops.lstm_scan_fwd_res_grouped(gates, wh)
+        dg, dwh = lstm_ops.lstm_scan_bwd_grouped(gates, hs, cs, wh, dhout)
+        dwh_alone = lstm_ops.lstm_dwh_grouped(hs, dg)
+        torch.cuda.synchronize()
+        ref_hs, ref_cs = lstm_ops.lstm_scan_fwd_res_reference_grouped(gates, wh)
+        ref_dg, ref_dwh = lstm_ops.lstm_scan_bwd_reference_grouped(gates, hs, cs, wh, dhout)
+        scale = float(ref_dwh.abs().max())
+        errs = {
+            "lstm_scan_fwd_res_grouped": max(float((hs - ref_hs).abs().max()),
+                                             float((cs - ref_cs).abs().max())),
+            "lstm_scan_bwd_grouped": float((dg - ref_dg).abs().max()),
+            "lstm_dwh_grouped": float((dwh - ref_dwh).abs().max()),
+        }
+        log(f"[train-kernels] {label} T={t} G={g} B={b} H={h}: K3 hs/cs max|d|="
+            f"{errs['lstm_scan_fwd_res_grouped']:.3e} (tol {KERNEL_TOL}); K4 dgates max|d|="
+            f"{errs['lstm_scan_bwd_grouped']:.3e} (tol {KERNEL_TOL}); dWh max|d|="
+            f"{errs['lstm_dwh_grouped']:.3e} of max|dWh| {scale:.3e} "
+            f"(tol {DWH_TOL} x max(1, max|dWh|))")
+        if not (errs["lstm_scan_fwd_res_grouped"] <= KERNEL_TOL
+                and errs["lstm_scan_bwd_grouped"] <= KERNEL_TOL
+                and errs["lstm_dwh_grouped"] <= DWH_TOL * max(1.0, scale)
+                and torch.equal(dwh, dwh_alone)):
+            raise AssertionError(f"a training kernel disagrees with its plain version at {label}")
+        for name, err in errs.items():
+            records[name]["max_abs_err"] = max(records[name]["max_abs_err"], err)
+        if label == "ragged":
+            continue
+
+        reps = 3
+        lib = torch.nn.LSTM(h, h, bidirectional=True).to(dev).train()
+        x = torch.randn(t, b, h, device=dev, generator=gen, requires_grad=True)
+        out, _ = lib(x)
+        grad_out = torch.randn_like(out)
+        cases = {
+            "lstm_scan_fwd_res_grouped": (
+                lambda: lstm_ops.lstm_scan_fwd_res_grouped(gates, wh),
+                lambda: lstm_ops.lstm_scan_fwd_res_reference_grouped(gates, wh),
+                lambda: lib(x), "cuDNN nn.LSTM(128, 128, bidirectional=True) train-mode "
+                "forward incl. its input projection", lstm_bound_ms(t, g, b, h, save_c=True)),
+            "lstm_scan_bwd_grouped": (
+                lambda: lstm_ops.lstm_scan_bwd_grouped(gates, hs, cs, wh, dhout),
+                lambda: lstm_ops.lstm_scan_bwd_reference_grouped(gates, hs, cs, wh, dhout),
+                lambda: torch.autograd.grad(out, [x, *lib.parameters()], grad_out,
+                                            retain_graph=True),
+                "cuDNN backward of that layer (dx and every weight)",
+                lstm_bwd_bound_ms(t, g, b, h)),
+            "lstm_dwh_grouped": (
+                lambda: lstm_ops.lstm_dwh_grouped(hs, dg),
+                lambda: lstm_ops.lstm_dwh_reference_grouped(hs, dg),
+                lambda: torch.einsum("tgbk,tgbj->gkj", hs[:-1], dg[1:]),
+                "torch.einsum (cuBLAS) over the shifted hs and dgates", dwh_bound_ms(t, g, b, h)),
+        }
+        for name, (kernel, plain, library, lib_label, (bound, bound_by)) in cases.items():
+            ms = cuda_ms(kernel, reps)
+            plain_ms = cuda_ms(plain, 1)
+            library_ms = cuda_ms(library, reps)
+            records[name].update({
+                "shape": f"T={t} G={g} B={b} H={h}", "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound, "bound_by": bound_by, "library_ms": library_ms,
+            })
+            log(f"[train-kernels] {name} {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                f"{lib_label} {library_ms:.4f} ms, bound {bound:.4f} ms ({bound_by})")
+    return records
+
+
+def _synthetic_corpus(seed: int):
+    """N_SEQS Wav2Vec2-width sequences of MIN_FRAMES to SEQ_LEN frames,
+    balanced labels, class 1 shifted a little on a few dimensions."""
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(MIN_FRAMES, SEQ_LEN + 1, size=N_SEQS)
+    labels = np.arange(N_SEQS) % 2
+    seqs = []
+    for n, y in zip(lengths, labels):
+        x = rng.standard_normal((n, DIM), dtype=np.float32)
+        x[:, :16] += 0.3 * y
+        seqs.append(x)
+    return seqs, labels
+
+
+def _counters():
+    return {name: getattr(lstm_ops, name) for name in (
+        "lstm_scan_grouped", "lstm_scan", "lstm_scan_fwd_res_grouped",
+        "lstm_scan_bwd_grouped", "lstm_dwh_grouped")}
+
+
+def training_phase(dev: torch.device) -> dict:
+    """The second main path: one CV fold of flagship training and its eval."""
+    t0 = time.perf_counter()
+    seqs, y = _synthetic_corpus(0)
+    log(f"[training] corpus: {N_SEQS} x (T, {DIM}), T in [{min(map(len, seqs))}, "
+        f"{max(map(len, seqs))}], made in {time.perf_counter() - t0:.2f} s")
+    train_idx, test_idx = next(StratifiedKFold(5, shuffle=True, random_state=42).split(seqs, y))
+    tr, val = train_test_indices(y[train_idx], n_splits=5, seed=42)
+    tr, val = train_idx[tr], train_idx[val]
+    pick = lambda idx: [seqs[i] for i in idx]  # noqa: E731
+    cfg = loops.TrainConfig(learning_rate=1e-3, epochs=TRAIN_EPOCHS, batch_size=8, seed=42,
+                            dropout_rate=0.5)
+    trainer = loops.Trainer(CNNLSTM(DIM, 2, 128, 128, dropout_rate=0.5), device=dev)
+
+    # harness-side timing of each step (synchronised) around the trainer's own
+    step_ms, step_frames = [], []
+    real_step = trainer.train_step
+
+    def timed_step(state, batch, lengths, *args):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        loss = real_step(state, batch, lengths, *args)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - start) * 1e3)
+        step_frames.append(int(np.sum(lengths)))
+        return loss
+
+    trainer.train_step = timed_step
+    counters = _counters()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    state, train_hist, val_hist = loops.train_model(
+        trainer, pick(tr), y[tr], pick(val), y[val], cfg)
+    y_true, y_pred, y_prob = loops.evaluate_model(trainer, state, pick(test_idx), y[test_idx], cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    trainer.train_step = real_step
+
+    n_epochs = len(train_hist)
+    n_steps = len(step_ms)
+    n_eval = n_epochs * -(-len(val) // cfg.batch_size) + -(-len(test_idx) // cfg.batch_size)
+    for e, (a, b) in enumerate(zip(train_hist, val_hist)):
+        log(f"[training] epoch {e + 1}: train loss {a:.6f} val loss {b:.6f}")
+    steady = step_ms[1:] or step_ms
+    audio_s = sum(step_frames) / FRAMES_PER_SECOND
+    log(f"[training] fold 0: {len(tr)} train / {len(val)} val / {len(test_idx)} test; "
+        f"{n_steps} steps in {n_epochs} epochs, {wall:.3f} s for train_model + evaluate_model")
+    log(f"[training] train step: first {step_ms[0]:.3f} ms, then median "
+        f"{statistics.median(steady):.3f} ms (min {min(steady):.3f}, max {max(steady):.3f}, "
+        f"all {[round(v, 3) for v in step_ms]}); {audio_s / (sum(step_ms) / 1e3):.1f} "
+        f"audio-s trained per s of step time; peak memory {peak_gib:.3f} GiB")
+    log(f"[training] main-path launches: {launches}; expected 2 x {n_steps} steps of K3/K4/dWh "
+        f"and 2 x {n_eval} eval batches of K1")
+    if not (launches["lstm_scan_fwd_res_grouped"] == launches["lstm_scan_bwd_grouped"]
+            == launches["lstm_dwh_grouped"] == 2 * n_steps
+            and launches["lstm_scan_grouped"] == 2 * n_eval and launches["lstm_scan"] == 0):
+        raise AssertionError("the training path did not launch the kernels as expected")
+
+    metrics = classification_metrics(y_true, y_pred, y_prob)
+    weights = stability_probe(state.model).cpu().numpy()
+    log(f"[training] fold 0 test metrics: {json.dumps(metrics)}; stability vector "
+        f"{weights.shape}, mean {weights.mean():.6f}")
+    if not (np.isfinite(train_hist + val_hist).all() and np.isfinite(y_prob).all()
+            and y_prob.shape == (len(test_idx),) and weights.shape == (DIM,)):
+        raise AssertionError("training produced non-finite or misshapen results")
+    profile_train_step(trainer, state, pick(tr[:cfg.batch_size]), y[tr[:cfg.batch_size]], cfg)
+    return launches
+
+
+def profile_train_step(trainer, state, seqs, labels, cfg) -> None:
+    """Device time by kernel over one train step, after one warm-up step."""
+    from robust_speech_analysis_framework_tpu_torch.data.batching import pad_batch
+
+    batch, lengths = pad_batch(seqs, min_bucket=cfg.min_bucket)
+    gen = torch.Generator(device=trainer.device).manual_seed(0)
+
+    def step():
+        trainer.train_step(state, batch, lengths, labels, gen, True, cfg.dropout_rate)
+
+    step()
+    torch.cuda.synchronize()
+    profile_device(f"one train step at {tuple(batch.shape)}", step, 12)
+
+
+ZERO_GRAD = ("res_block1.conv1.bias", "res_block1.conv2.bias", "res_block1.shortcut.0.bias",
+             "res_block2.conv1.bias", "res_block2.conv2.bias",
+             "attention_pooling.attention_weights.bias")
+
+
+def parity_phase(dev: torch.device) -> None:
+    """One flagship train step on the card and on the CPU from the same weights."""
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((2, 512, DIM), dtype=np.float32)
+    lengths = np.array([512, 377], np.int32)
+    x[1, 377:] = 0.0
+    labels = np.array([0, 1])
+    template = CNNLSTM(DIM, 2, 128, 128, dropout_rate=0.0)
+    template.res_block1.dropout = template.res_block2.dropout = 0.0
+    weights = loops.Trainer(template, device="cpu").init_state(7, 1e-3).model.state_dict()
+
+    def one_step(where):
+        trainer = loops.Trainer(template, adam_eps=PARITY_ADAM_EPS, device=where)
+        state = trainer.init_state(7, 1e-3, weights)
+        loss = float(trainer.train_step(state, x, lengths, labels, None))
+        grads = {n: p.grad.cpu() for n, p in state.model.named_parameters() if p.grad is not None}
+        return loss, grads, {k: v.cpu() for k, v in state.model.state_dict().items()}
+
+    (l_card, g_card, s_card), (l_cpu, g_cpu, s_cpu) = one_step(dev), one_step("cpu")
+    loss_err = abs(l_card - l_cpu)
+    grad_err = max(float((g_card[k] - g_cpu[k]).abs().max() / g_cpu[k].abs().max().clamp_min(1e-12))
+                   for k in g_cpu if k not in ZERO_GRAD)
+    zero_grad = max(float(g_card[k].abs().max()) for k in ZERO_GRAD)
+    param_err = max(float((s_card[k] - s_cpu[k]).abs().max()) for k in s_cpu
+                    if "running" not in k and k not in ZERO_GRAD and "num_batches" not in k)
+    zero_step = max(float((s_card[k] - weights[k]).abs().max()) for k in ZERO_GRAD)
+    stats_err = max(float((s_card[k] - s_cpu[k]).abs().max()) for k in s_cpu if "running" in k)
+    log(f"[parity] one flagship train step B=2 T=512 (Adam eps {PARITY_ADAM_EPS}), card vs "
+        f"CPU: loss {l_card:.7f} vs "
+        f"{l_cpu:.7f} (|d|={loss_err:.3e}, tol {PARITY_LOSS_TOL}); gradients max rel "
+        f"{grad_err:.3e} (tol {PARITY_GRAD_TOL}); params after Adam max|d|={param_err:.3e} "
+        f"(tol {PARITY_PARAM_TOL}); BN running stats max|d|={stats_err:.3e} "
+        f"(tol {PARITY_LOSS_TOL}); the six zero-gradient biases: max|grad| {zero_grad:.3e}, "
+        f"step <= lr: {zero_step:.3e}")
+    if not (loss_err <= PARITY_LOSS_TOL and grad_err <= PARITY_GRAD_TOL
+            and param_err <= PARITY_PARAM_TOL and stats_err <= PARITY_LOSS_TOL
+            and zero_step <= 1e-3 * (1 + 1e-5)):
+        raise AssertionError("the train step on the card disagrees with the CPU")
+
+
 def run(dev: torch.device, smi: str) -> None:
     """Every phase on ``dev``; prints the kernels' record and the result line."""
     log(f"[card] {smi}")
@@ -287,20 +589,30 @@ def run(dev: torch.device, smi: str) -> None:
                 log(f"[build] {name}: {line.strip()}")
 
     records = kernel_phase(dev)
+    records.update(train_kernel_phase(dev))
     flagship_phase(dev)
     with tempfile.TemporaryDirectory() as tmp:
-        launches = serving_phase(dev, tmp)
+        serving = serving_phase(dev, tmp)
+    training = training_phase(dev)
+    parity_phase(dev)
 
     kernels = []
-    for name, line in (("lstm_scan_grouped", 180), ("lstm_scan", 81)):
+    for name, source, line in (
+        ("lstm_scan_grouped", SOURCE, 180), ("lstm_scan", SOURCE, 81),
+        ("lstm_scan_fwd_res_grouped", SOURCE, 342), ("lstm_scan_bwd_grouped", TRAIN_SOURCE, 383),
+        ("lstm_dwh_grouped", TRAIN_SOURCE, 319),
+    ):
         rec = records[name]
+        by_path = {"serving": serving[name], "training": training[name]}
         kernels.append({
-            "name": name, "route": "cuda", "source": SOURCE,
-            "replaces": f"{PALLAS}:{line}", "launches": launches[name],
+            "name": name, "route": "cuda", "source": source,
+            "replaces": f"{PALLAS}:{line}", "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec["library_ms"], "shape": rec["shape"],
-            "on_main_path": name == "lstm_scan_grouped", "serving": rec["serving"],
+            "on_main_path": name != "lstm_scan",
+            **({"serving": rec["serving"]} if "serving" in rec else {}),
         })
     log(f"[card] {smi}")
     print(json.dumps({"kernels": kernels}))

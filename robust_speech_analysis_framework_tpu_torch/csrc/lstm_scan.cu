@@ -1,8 +1,11 @@
 // Grouped LSTM recurrence for Hopper (sm_90a), fp32.
 //
 // Replaces the Pallas TPU kernels `lstm_scan_pallas_grouped` / `_kernel_grouped`
-// (robust_speech_analysis_framework_tpu/ops/pallas/lstm.py:144-220) and, at
-// G = 1, `lstm_scan_pallas` / `_kernel` (:50-119). It computes, for G
+// (robust_speech_analysis_framework_tpu/ops/pallas/lstm.py:144-220), at
+// G = 1 `lstm_scan_pallas` / `_kernel` (:50-119), and, with kSaveC set, the
+// training forward `_lstm_fwd_res_pallas` / `_kernel_fwd_res` (:234-379),
+// which also writes every c_t as the residual of the reverse sweep
+// (csrc/lstm_train.cu). It computes, for G
 // independent recurrences advancing in lockstep (the two directions of one
 // biLSTM layer):
 //
@@ -10,8 +13,10 @@
 //     c_t = sigmoid(f) * c_{t-1} + sigmoid(i) * tanh(g)
 //     h_t = sigmoid(o) * tanh(c_t),                   h_0 = c_0 = 0,
 //
-// and writes every h_t. State is NOT frozen past a sequence's length, as in
-// the TPU kernel: callers only read valid frames.
+// and writes every h_t (and every c_t when kSaveC: the c[b] the thread
+// already holds in a register costs one more store per step). State is NOT
+// frozen past a sequence's length, as in the TPU kernel: callers only read
+// valid frames.
 //
 // Design. The TPU walked a sequential grid over time blocks and carried h and
 // c in VMEM scratch. Blocks on Hopper run in no order, so the whole time loop
@@ -47,11 +52,12 @@ __device__ __forceinline__ float sigmoid_f32(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
 
-template <int BT>
+template <int BT, bool kSaveC>
 __global__ void __launch_bounds__(512) lstm_scan_grouped_kernel(
     const float* __restrict__ gates,  // (T, G, B, 4H)
     const float4* __restrict__ whp,   // (G, H/4, 4H) float4, see lstm.py
     float* __restrict__ hs,           // (T, G, B, H)
+    float* __restrict__ cs,           // (T, G, B, H) when kSaveC, else unused
     int T, int G, int B, int H) {
   extern __shared__ float4 smem[];
   float* h_s = reinterpret_cast<float*>(smem);  // [2][BT][H]
@@ -73,7 +79,8 @@ __global__ void __launch_bounds__(512) lstm_scan_grouped_kernel(
   const float4* w = whp + (size_t)g * nk4 * H4 + p;
   const size_t step_stride = (size_t)G * B * H4;
   const float* gx_base = gates + ((size_t)g * B + b0) * H4 + q * H + u;
-  float* hs_base = hs + ((size_t)g * B + b0) * H + u;
+  const size_t hs_off = ((size_t)g * B + b0) * H + u;
+  float* hs_base = hs + hs_off;
   const size_t hs_step = (size_t)G * B * H;
 
   for (int t = 0; t < T; ++t) {
@@ -116,36 +123,56 @@ __global__ void __launch_bounds__(512) lstm_scan_grouped_kernel(
       const float h = sigmoid_f32(zo) * tanhf(c[b]);
       if (q == (b & 3)) {
         h_next[b * H + u] = h;
-        if (b0 + b < B) hs_base[(size_t)t * hs_step + (size_t)b * H] = h;
+        if (b0 + b < B) {
+          const size_t at = (size_t)t * hs_step + (size_t)b * H;
+          hs_base[at] = h;
+          if (kSaveC) cs[hs_off + at] = c[b];
+        }
       }
     }
     __syncthreads();
   }
 }
 
-template <int BT>
-cudaError_t launch(const float* gates, const float* whp, float* hs, int T,
-                   int G, int B, int H, cudaStream_t stream) {
+template <int BT, bool kSaveC>
+cudaError_t launch(const float* gates, const float* whp, float* hs, float* cs,
+                   int T, int G, int B, int H, cudaStream_t stream) {
   const dim3 grid((B + BT - 1) / BT, G);
   const size_t smem = 2 * (size_t)BT * H * sizeof(float);
-  lstm_scan_grouped_kernel<BT><<<grid, 4 * H, smem, stream>>>(
-      gates, reinterpret_cast<const float4*>(whp), hs, T, G, B, H);
+  lstm_scan_grouped_kernel<BT, kSaveC><<<grid, 4 * H, smem, stream>>>(
+      gates, reinterpret_cast<const float4*>(whp), hs, cs, T, G, B, H);
   return cudaGetLastError();
+}
+
+template <bool kSaveC>
+int launch_tiled(const float* gates, const float* whp, float* hs, float* cs,
+                 int T, int G, int B, int H, int batch_tile, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (batch_tile) {
+    case 1: return launch<1, kSaveC>(gates, whp, hs, cs, T, G, B, H, s);
+    case 2: return launch<2, kSaveC>(gates, whp, hs, cs, T, G, B, H, s);
+    case 4: return launch<4, kSaveC>(gates, whp, hs, cs, T, G, B, H, s);
+    case 8: return launch<8, kSaveC>(gates, whp, hs, cs, T, G, B, H, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
 
-// Plain C entry point for ctypes. Returns the cudaError_t of the launch
-// (0 on success). The wrapper checks shapes: H % 8 == 0 and H <= 128.
+// Plain C entry points for ctypes. Each returns the cudaError_t of the
+// launch (0 on success). The wrapper checks shapes: H % 8 == 0, H <= 128.
 extern "C" int lstm_scan_grouped_f32(const float* gates, const float* whp,
                                      float* hs, int T, int G, int B, int H,
                                      int batch_tile, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (batch_tile) {
-    case 1: return launch<1>(gates, whp, hs, T, G, B, H, s);
-    case 2: return launch<2>(gates, whp, hs, T, G, B, H, s);
-    case 4: return launch<4>(gates, whp, hs, T, G, B, H, s);
-    case 8: return launch<8>(gates, whp, hs, T, G, B, H, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return launch_tiled<false>(gates, whp, hs, nullptr, T, G, B, H, batch_tile,
+                             stream);
+}
+
+// K3: the same recurrence, also writing c_t to cs (T, G, B, H).
+extern "C" int lstm_scan_fwd_res_grouped_f32(const float* gates,
+                                             const float* whp, float* hs,
+                                             float* cs, int T, int G, int B,
+                                             int H, int batch_tile,
+                                             void* stream) {
+  return launch_tiled<true>(gates, whp, hs, cs, T, G, B, H, batch_tile, stream);
 }

@@ -1,14 +1,15 @@
 """Ragged-sequence batching with bucketed padding (numpy).
 
-Copy of ``robust_speech_analysis_framework_tpu/data/batching.py:18-51``:
-padded lengths are rounded up a geometric bucket ladder, so a server sees a
-bounded set of shapes.
+Copy of ``robust_speech_analysis_framework_tpu/data/batching.py``: padded
+lengths are rounded up a geometric bucket ladder, so a server sees a
+bounded set of shapes; training batches are shuffled by
+``np.random.RandomState(seed)``, in the JAX package's order.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence, Tuple
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -47,3 +48,40 @@ def pad_batch(
         out[i, :t] = s[:t]
         lengths[i] = t
     return out, lengths
+
+
+def batch_iterator(
+    sequences: Sequence[np.ndarray],
+    labels: Sequence[int],
+    batch_size: int,
+    shuffle: bool = False,
+    seed: int = 0,
+    min_bucket: int = 64,
+    growth: float = 2.0,
+    max_len: Optional[int] = None,
+) -> Iterator[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
+    """Yield (padded_batch, lengths, labels) minibatches.
+
+    With ``shuffle``, order is drawn from ``np.random.RandomState(seed)``
+    so epochs are reproducible.
+    """
+    n = len(sequences)
+    order = np.arange(n)
+    if shuffle:
+        np.random.RandomState(seed).shuffle(order)
+    labels = np.asarray(labels)
+    for start in range(0, n, batch_size):
+        idx = order[start : start + batch_size]
+        batch, lengths = pad_batch(
+            [sequences[i] for i in idx], min_bucket, growth, max_len
+        )
+        yield batch, lengths, labels[idx]
+
+
+def length_sorted_batches(
+    sequences: Sequence[np.ndarray], batch_size: int
+) -> List[np.ndarray]:
+    """Index batches grouping similar lengths together (inference-time
+    throughput: minimizes padding waste and compile count)."""
+    order = np.argsort([len(s) for s in sequences], kind="stable")
+    return [order[i : i + batch_size] for i in range(0, len(order), batch_size)]

@@ -1,4 +1,4 @@
-"""CNN-LSTM sequence classifier (PyTorch, inference).
+"""CNN-LSTM sequence classifier (PyTorch).
 
 Counterpart of ``robust_speech_analysis_framework_tpu/models/cnn_lstm.py``:
 two residual Conv1d blocks → time max-pool ×2 → 2-layer bidirectional LSTM →
@@ -13,16 +13,29 @@ Parameter names follow the reference PyTorch checkpoints
 i, f, g, o), ``attention_pooling.attention_weights`` and ``fc``.
 
 The biLSTM does not run ``nn.LSTM``: its input projections are one matmul
-per layer and both directions' recurrences go through one launch of the
-CUDA kernel (:func:`..ops.cuda.lstm.lstm_scan_grouped`) on the card, or its
-plain version on the CPU. Like the TPU kernel, the recurrence does not
-freeze state past ``lengths``; nothing downstream reads those frames
-(attention masks them, the backward direction reads the reversed valid
-prefix, and padding is trailing).
+per layer and both directions' recurrences go through one launch of a CUDA
+kernel on the card, or its plain version on the CPU: K1
+(:func:`..ops.cuda.lstm.lstm_scan_grouped`) when no gradient is needed, K5
+(:func:`..ops.cuda.lstm.lstm_recurrence_grouped`: K3 forward, K4 backward)
+when one is. Like the TPU kernels, the recurrence does not freeze state past
+``lengths``; nothing downstream reads those frames (attention masks them,
+the backward direction reads the reversed valid prefix, and padding is
+trailing), so they get a zero gradient and the gradients of valid frames
+equal those of the JAX package's frozen scan.
 
-This slice is inference only: BatchNorm uses running statistics and dropout
-is the identity. Training arrives with the training slice, so ``forward``
-refuses a module in train mode.
+Train mode (``model.train()``) follows the JAX model, not torch's defaults:
+
+* BatchNorm (:class:`BatchNorm`) normalises by the batch statistics over
+  (B, T), padded frames included, with the biased variance, and updates the
+  running statistics as Flax does: ``ra = 0.99 * ra + 0.01 * batch`` for the
+  mean and for the biased variance (torch's own would take 0.1 and the
+  unbiased variance).
+* Dropout (:func:`dropout`) keeps each element with probability ``1 - rate``
+  and scales it by ``1 / max(1 - rate, 1e-6)``, drawing from the generator
+  given to ``forward`` (torch's default generator for the device if None). It
+  applies after the first conv of each residual block at the block's fixed
+  ``dropout`` (0.2), between biLSTM layers and on the pooled vector, at the
+  ``dropout_rate`` given to ``forward`` or else the model's ``dropout_rate``.
 """
 
 from __future__ import annotations
@@ -34,7 +47,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..device import DeviceLike, resolve_device
-from ..ops.cuda.lstm import lstm_scan_grouped
+from ..ops.cuda.lstm import lstm_recurrence_grouped, lstm_scan_grouped
 from .init import init_weights_
 
 
@@ -55,29 +68,76 @@ def _mask_pad(h: torch.Tensor, lengths: Optional[torch.Tensor]) -> torch.Tensor:
     return h.masked_fill(t[None, :, None] >= lengths[:, None, None], 0.0)
 
 
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Keep each element with probability ``1 - rate``, scaled by
+    ``1 / max(1 - rate, 1e-6)`` (the JAX model's ``RateDropout``)."""
+    if rate == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device, dtype=x.dtype) >= rate
+    return torch.where(keep, x / max(1.0 - rate, 1e-6), 0.0)
+
+
+class BatchNorm(nn.BatchNorm1d):
+    """BatchNorm over (B, C, T) with Flax's train-mode semantics.
+
+    Eval mode is torch's (running statistics). Train mode normalises with
+    the batch mean and the biased batch variance ``E[x²] − E[x]²`` (clipped
+    at 0), as ``flax.linen.BatchNorm`` does, and moves the running statistics
+    by Flax's momentum 0.99 (torch's ``momentum=0.01``) with the biased
+    variance, unless ``update_running_stats`` is False (a recomputed forward
+    under rematerialisation must not count its batch twice). The state-dict
+    names are ``nn.BatchNorm1d``'s.
+    """
+
+    def __init__(self, num_features: int):
+        super().__init__(num_features, eps=1e-5, momentum=0.01)
+        self.update_running_stats = True
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        mean = x.mean(dim=(0, 2))
+        var = torch.clamp((x * x).mean(dim=(0, 2)) - mean * mean, min=0.0)
+        if self.update_running_stats:
+            m = self.momentum
+            with torch.no_grad():
+                self.running_mean.copy_((1.0 - m) * self.running_mean + m * mean)
+                self.running_var.copy_((1.0 - m) * self.running_var + m * var)
+                self.num_batches_tracked += 1
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean[:, None]) * mul[:, None] + self.bias[:, None]
+
+
 class ResidualBlock(nn.Module):
     """Two k=3 same-padded convs with BN, plus a 1×1 conv+BN skip when the
-    channel counts differ; post-add activation. Operates on (B, T, C)."""
+    channel counts differ; post-add activation; in train mode, dropout at
+    the fixed rate ``dropout`` after the first conv's activation. Operates
+    on (B, T, C)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
-                 activation_fn: str = "silu"):
+                 activation_fn: str = "silu", dropout: float = 0.2):
         super().__init__()
         pad = kernel_size // 2
+        self.dropout = dropout
         self.conv1 = nn.Conv1d(in_channels, out_channels, kernel_size, padding=pad)
-        self.bn1 = nn.BatchNorm1d(out_channels)
+        self.bn1 = BatchNorm(out_channels)
         self.conv2 = nn.Conv1d(out_channels, out_channels, kernel_size, padding=pad)
-        self.bn2 = nn.BatchNorm1d(out_channels)
+        self.bn2 = BatchNorm(out_channels)
         if in_channels != out_channels:
             self.shortcut = nn.Sequential(
-                nn.Conv1d(in_channels, out_channels, 1), nn.BatchNorm1d(out_channels)
+                nn.Conv1d(in_channels, out_channels, 1), BatchNorm(out_channels)
             )
         else:
             self.shortcut = nn.Identity()
         self.act = get_activation_fn(activation_fn)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         x = x.transpose(1, 2)
         h = self.act(self.bn1(self.conv1(x)))
+        if self.training:
+            h = dropout(h, self.dropout, generator)
         h = self.bn2(self.conv2(h))
         return self.act(h + self.shortcut(x)).transpose(1, 2)
 
@@ -106,7 +166,11 @@ class BiLSTM(nn.Module):
         p = lambda n: getattr(self, f"{n}_{sfx}")  # noqa: E731
         return p("weight_ih"), p("weight_hh"), p("bias_ih") + p("bias_hh")
 
-    def forward(self, x: torch.Tensor, lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, lengths: Optional[torch.Tensor] = None,
+                dropout_rate: float = 0.0,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """(B, T, C) → (B, T, 2H); in train mode, dropout at ``dropout_rate``
+        between layers."""
         h = x
         b, t, _ = x.shape
         if lengths is None:
@@ -129,7 +193,10 @@ class BiLSTM(nn.Module):
             gates = gates + torch.stack([bias_f, bias_b])[:, None, :]
             gates = gates.reshape(2, b, t, -1).permute(2, 0, 1, 3).contiguous()  # (T, 2, B, 4H)
             wh = torch.stack([wh_f.t(), wh_b.t()])  # (2, H, 4H)
-            hs = lstm_scan_grouped(gates, wh)  # (T, 2, B, H)
+            if gates.requires_grad or wh.requires_grad:
+                hs = lstm_recurrence_grouped(gates, wh)  # K5: K3 now, K4 in backward
+            else:
+                hs = lstm_scan_grouped(gates, wh)  # K1; (T, 2, B, H)
             fwd = hs[:, 0].transpose(0, 1)
             bwd = hs[:, 1].transpose(0, 1)
             if idx is None:
@@ -137,6 +204,8 @@ class BiLSTM(nn.Module):
             else:
                 bwd = torch.gather(bwd, 1, idx[:, :, None].expand(-1, -1, bwd.shape[2]))
             h = torch.cat([fwd, bwd], dim=-1)
+            if self.training and layer < self.num_layers - 1:
+                h = dropout(h, dropout_rate, generator)
         return h
 
 
@@ -176,7 +245,7 @@ class CNNLSTM(nn.Module):
         self.cnn_out_channels = cnn_out_channels
         self.lstm_hidden_dim = lstm_hidden_dim
         self.lstm_layers = lstm_layers
-        self.dropout_rate = dropout_rate  # kept for checkpoints; inference ignores it
+        self.dropout_rate = dropout_rate
         self.activation_fn = activation_fn
         self.res_block1 = ResidualBlock(input_dim, cnn_out_channels, activation_fn=activation_fn)
         self.res_block2 = ResidualBlock(
@@ -185,14 +254,22 @@ class CNNLSTM(nn.Module):
         self.attention_pooling = AttentionPooling(2 * lstm_hidden_dim)
         self.fc = nn.Linear(2 * lstm_hidden_dim, num_classes)
 
-    def forward(self, x: torch.Tensor, lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """(B, T, input_dim) [+ lengths (B,)] → logits (B, num_classes)."""
-        if self.training:
-            raise RuntimeError(
-                "CNNLSTM is inference-only in this port: call .eval() first"
-            )
+    def forward(
+        self,
+        x: torch.Tensor,
+        lengths: Optional[torch.Tensor] = None,
+        dropout_rate: Optional[float] = None,
+        generator: Optional[torch.Generator] = None,
+    ) -> torch.Tensor:
+        """(B, T, input_dim) [+ lengths (B,)] → logits (B, num_classes).
+
+        ``dropout_rate`` overrides the model's own between biLSTM layers and
+        on the pooled vector; ``generator`` draws the dropout masks. Both
+        matter in train mode only.
+        """
+        rate = self.dropout_rate if dropout_rate is None else float(dropout_rate)
         h = _mask_pad(x, lengths)
-        h = _mask_pad(self.res_block1(h), lengths)
+        h = _mask_pad(self.res_block1(h, generator), lengths)
         # Non-overlapping max-pool halves T (odd last frame dropped).
         h = F.max_pool1d(h.transpose(1, 2), kernel_size=2, stride=2).transpose(1, 2)
         if lengths is not None:
@@ -200,9 +277,12 @@ class CNNLSTM(nn.Module):
             # attention score to -inf and NaN its row through softmax
             lengths = torch.clamp(lengths // 2, min=1)
         h = _mask_pad(h, lengths)
-        h = _mask_pad(self.res_block2(h), lengths)
-        h = self.lstm(h, lengths)
-        return self.fc(self.attention_pooling(h, lengths))
+        h = _mask_pad(self.res_block2(h, generator), lengths)
+        h = self.lstm(h, lengths, rate if self.lstm_layers > 1 else 0.0, generator)
+        pooled = self.attention_pooling(h, lengths)
+        if self.training:
+            pooled = dropout(pooled, rate, generator)
+        return self.fc(pooled)
 
 
 def stability_probe(model: CNNLSTM) -> torch.Tensor:

@@ -3,7 +3,8 @@
 The JAX package saves its models as flat dicts of numpy arrays keyed by the
 Flax tree path (``'params/res_block1/conv1/kernel'``,
 ``'batch_stats/res_block1/bn1/mean'``; ``train/checkpoints.flatten_params``).
-These functions turn such a dict into a state dict for the port's modules:
+These functions turn such a dict into a state dict for the port's modules
+(and :func:`cnn_lstm_flat_from_state_dict` turns a port CNN-LSTM back):
 
 * conv kernels ``(k, in, out)`` → ``(out, in, k)``;
 * dense kernels ``(in, out)`` → ``(out, in)``;
@@ -78,6 +79,57 @@ def cnn_lstm_state_dict_from_flat(flat: Mapping[str, Any]) -> Dict[str, torch.Te
         else:
             raise KeyError(f"unexpected parameter {key!r}")
     return sd
+
+
+def cnn_lstm_flat_from_state_dict(state_dict: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """Port ``CNNLSTM`` state dict → JAX flat variables (``params/...`` and
+    ``batch_stats/...``, float32 numpy), the inverse of
+    :func:`cnn_lstm_state_dict_from_flat`. The JAX cell has one bias, so it
+    gets ``bias_ih + bias_hh``; ``num_batches_tracked`` has no counterpart."""
+    bn_names = {"bn1": "bn1", "bn2": "bn2", "shortcut.1": "shortcut_bn"}
+    conv_names = {"conv1": "conv1", "conv2": "conv2", "shortcut.0": "shortcut_conv"}
+    flat: Dict[str, np.ndarray] = {}
+
+    def arr(key: str) -> np.ndarray:
+        return state_dict[key].detach().cpu().numpy().astype(np.float32)
+
+    for key in state_dict:
+        if key.endswith("num_batches_tracked"):
+            continue
+        head, rest = key.split(".", 1)
+        if head.startswith("res_block"):
+            layer, leaf = rest.rsplit(".", 1)
+            if layer in conv_names:
+                name = "kernel" if leaf == "weight" else "bias"
+                value = _kernel(arr(key)) if leaf == "weight" else arr(key)
+                flat[f"params/{head}/{conv_names[layer]}/{name}"] = value
+            elif leaf in ("running_mean", "running_var"):
+                stat = "mean" if leaf == "running_mean" else "var"
+                flat[f"batch_stats/{head}/{bn_names[layer]}/{stat}"] = arr(key)
+            else:
+                name = "scale" if leaf == "weight" else "bias"
+                flat[f"params/{head}/{bn_names[layer]}/{name}"] = arr(key)
+        elif head == "lstm":
+            kind, sfx = rest.rsplit("_l", 1)
+            layer, _, rev = sfx.partition("_")
+            cell = f"params/lstm/{'bwd' if rev else 'fwd'}_{layer}"
+            if kind == "weight_ih":
+                flat[f"{cell}/wx"] = arr(key).T.copy()
+            elif kind == "weight_hh":
+                flat[f"{cell}/wh"] = arr(key).T.copy()
+            elif kind == "bias_ih":
+                flat[f"{cell}/bias"] = arr(key) + arr(key.replace("bias_ih", "bias_hh"))
+        elif head == "attention_pooling":
+            leaf = rest.rsplit(".", 1)[-1]
+            name = "kernel" if leaf == "weight" else "bias"
+            flat[f"params/attention_pooling/score/{name}"] = (
+                _kernel(arr(key)).copy() if leaf == "weight" else arr(key))
+        elif head == "fc":
+            name = "kernel" if rest == "weight" else "bias"
+            flat[f"params/fc/{name}"] = _kernel(arr(key)).copy() if rest == "weight" else arr(key)
+        else:
+            raise KeyError(f"unexpected parameter {key!r}")
+    return flat
 
 
 def wav2vec2_state_dict_from_flat(flat: Mapping[str, Any]) -> Dict[str, torch.Tensor]:

@@ -1,13 +1,15 @@
-"""LSTM recurrence: the hand-written CUDA kernel and its plain PyTorch version.
+"""LSTM recurrence: the hand-written CUDA kernels and their plain PyTorch versions.
 
-Counterpart of ``robust_speech_analysis_framework_tpu/ops/pallas/lstm.py``
-(inference half). The input projections ``x @ Wx + b`` for all gates and
-time steps are one large matmul outside the kernel; the kernel runs the
-strictly sequential part,
+Counterpart of ``robust_speech_analysis_framework_tpu/ops/pallas/lstm.py``.
+The input projections ``x @ Wx + b`` for all gates and time steps are one
+large matmul outside the kernels; the kernels run the strictly sequential
+part,
 
     z_t = g_t + h_{t-1} @ Wh;   (i, f, g, o) = split(z_t);   c, h update,
 
-with the whole time loop inside one launch (``csrc/lstm_scan.cu``).
+with the whole time loop inside one launch.
+
+Inference (``csrc/lstm_scan.cu``):
 
 * :func:`lstm_scan_grouped` (K1): gates (T, G, B, 4H), wh (G, H, 4H) →
   hs (T, G, B, H); G recurrences in lockstep (both directions of a biLSTM
@@ -15,28 +17,45 @@ with the whole time loop inside one launch (``csrc/lstm_scan.cu``).
 * :func:`lstm_scan` (K2): the same kernel at G = 1; gates (T, B, 4H),
   wh (H, 4H) → hs (T, B, H).
 
-Like the TPU kernel, neither freezes state past a sequence's length: the
-padded tail computes values that callers never read.
+Training (``csrc/lstm_scan.cu`` with c saved, ``csrc/lstm_train.cu``):
+
+* :func:`lstm_scan_fwd_res_grouped` (K3): K1's recurrence, also returning
+  every c_t: → hs, cs (T, G, B, H).
+* :func:`lstm_scan_bwd_grouped` (K4): the reverse sweep, gates, hs, cs, wh,
+  dhout → dgates (T, G, B, 4H), dwh (G, H, 4H); dwh comes from
+  :func:`lstm_dwh_grouped`, a second hand-written kernel over dgates and the
+  shifted hs.
+* :class:`LSTMRecurrenceGrouped` (K5): the ``torch.autograd.Function``
+  pairing K3 with K4; :func:`lstm_recurrence_grouped` and, at G = 1,
+  :func:`lstm_recurrence` are its functional forms.
+
+Like the TPU kernels, none freezes state past a sequence's length: the
+padded tail computes values that callers never read, and (given a zero
+``dhout`` there) contributes nothing to the gradients.
 
 Dispatch goes by the tensors' device: CPU tensors take the plain version,
 CUDA tensors launch the kernel or raise. There is no fallback between them.
-Each wrapper counts its launches in ``.launches``.
+Each kernel's wrapper counts its launches in ``.launches``.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
 
 
-def lstm_scan_reference_grouped(gates: torch.Tensor, wh: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch recurrence: (T, G, B, 4H) + (G, H, 4H) → (T, G, B, H)."""
+def lstm_scan_fwd_res_reference_grouped(
+    gates: torch.Tensor, wh: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch recurrence: (T, G, B, 4H) + (G, H, 4H) → hs, cs (T, G, B, H)."""
     t_len, g, b, four_h = gates.shape
     h_dim = four_h // 4
     h = gates.new_zeros((g, b, h_dim))
     c = gates.new_zeros((g, b, h_dim))
-    out = gates.new_empty((t_len, g, b, h_dim))
+    hs = gates.new_empty((t_len, g, b, h_dim))
+    cs = gates.new_empty((t_len, g, b, h_dim))
     for t in range(t_len):
         z = gates[t] + torch.bmm(h, wh)
         i = torch.sigmoid(z[..., :h_dim])
@@ -45,8 +64,57 @@ def lstm_scan_reference_grouped(gates: torch.Tensor, wh: torch.Tensor) -> torch.
         o = torch.sigmoid(z[..., 3 * h_dim :])
         c = f * c + i * g_
         h = o * torch.tanh(c)
-        out[t] = h
-    return out
+        hs[t] = h
+        cs[t] = c
+    return hs, cs
+
+
+def lstm_scan_reference_grouped(gates: torch.Tensor, wh: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch recurrence: (T, G, B, 4H) + (G, H, 4H) → (T, G, B, H)."""
+    return lstm_scan_fwd_res_reference_grouped(gates, wh)[0]
+
+
+def lstm_dwh_reference_grouped(hs: torch.Tensor, dgates: torch.Tensor) -> torch.Tensor:
+    """Plain dWh: Σ over t ≥ 1 and b of hs[t-1]ᵀ dgates[t] → (G, H, 4H)."""
+    return torch.einsum("tgbk,tgbj->gkj", hs[:-1], dgates[1:])
+
+
+def lstm_scan_bwd_reference_grouped(
+    gates: torch.Tensor, hs: torch.Tensor, cs: torch.Tensor, wh: torch.Tensor,
+    dhout: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain reverse sweep (the TPU kernel's arithmetic, step by step).
+
+    gates (T, G, B, 4H), hs/cs/dhout (T, G, B, H), wh (G, H, 4H) →
+    dgates (T, G, B, 4H), dwh (G, H, 4H). h_{-1} = c_{-1} = 0.
+    """
+    t_len, g, b, four_h = gates.shape
+    h_dim = four_h // 4
+    zeros = gates.new_zeros((g, b, h_dim))
+    dh, dc = zeros, zeros
+    wh_t = wh.transpose(1, 2)
+    dgates = torch.empty_like(gates)
+    for t in reversed(range(t_len)):
+        hp = hs[t - 1] if t > 0 else zeros
+        cp = cs[t - 1] if t > 0 else zeros
+        z = gates[t] + torch.bmm(hp, wh)
+        i = torch.sigmoid(z[..., :h_dim])
+        f = torch.sigmoid(z[..., h_dim : 2 * h_dim])
+        g_ = torch.tanh(z[..., 2 * h_dim : 3 * h_dim])
+        o = torch.sigmoid(z[..., 3 * h_dim :])
+        tc = torch.tanh(cs[t])
+        dht = dhout[t] + dh
+        dct = dc + dht * o * (1.0 - tc * tc)
+        dz = torch.cat([
+            dct * g_ * i * (1.0 - i),
+            dct * cp * f * (1.0 - f),
+            dct * i * (1.0 - g_ * g_),
+            dht * tc * o * (1.0 - o),
+        ], dim=-1)
+        dgates[t] = dz
+        dh = torch.bmm(dz, wh_t)
+        dc = dct * f
+    return dgates, lstm_dwh_reference_grouped(hs, dgates)
 
 
 def lstm_scan_reference(gates: torch.Tensor, wh: torch.Tensor) -> torch.Tensor:
@@ -54,7 +122,10 @@ def lstm_scan_reference(gates: torch.Tensor, wh: torch.Tensor) -> torch.Tensor:
     return lstm_scan_reference_grouped(gates[:, None], wh[None])[:, 0]
 
 
-def _check(gates: torch.Tensor, wh: torch.Tensor, gates_ndim: int) -> None:
+def _check(gates: torch.Tensor, wh: torch.Tensor, gates_ndim: int,
+           cpu_float64: bool = False) -> None:
+    """Shapes, device and type; float64 passes only on the CPU and only
+    where ``cpu_float64`` (the training functions, for gradcheck)."""
     if gates.ndim != gates_ndim or wh.ndim != gates_ndim - 1:
         raise ValueError(
             f"expected gates with {gates_ndim} dims and wh with {gates_ndim - 1}, "
@@ -62,7 +133,8 @@ def _check(gates: torch.Tensor, wh: torch.Tensor, gates_ndim: int) -> None:
         )
     if gates.device != wh.device:
         raise ValueError(f"gates on {gates.device} but wh on {wh.device}")
-    if gates.dtype != torch.float32 or wh.dtype != torch.float32:
+    dtypes = (torch.float32, torch.float64) if cpu_float64 and gates.is_cpu else (torch.float32,)
+    if gates.dtype not in dtypes or wh.dtype != gates.dtype:
         raise TypeError(f"expected float32, got {gates.dtype} and {wh.dtype}")
     four_h = gates.shape[-1]
     h_dim = four_h // 4
@@ -70,6 +142,16 @@ def _check(gates: torch.Tensor, wh: torch.Tensor, gates_ndim: int) -> None:
         raise ValueError(
             f"wh {tuple(wh.shape)} does not match gates {tuple(gates.shape)}"
         )
+
+
+def _check_like(gates: torch.Tensor, **tensors: torch.Tensor) -> None:
+    """Each tensor is (T, G, B, H) for gates (T, G, B, 4H), on its device and type."""
+    t_len, g, b, four_h = gates.shape
+    for name, x in tensors.items():
+        if tuple(x.shape) != (t_len, g, b, four_h // 4):
+            raise ValueError(f"{name} {tuple(x.shape)} does not match gates {tuple(gates.shape)}")
+        if x.device != gates.device or x.dtype != gates.dtype:
+            raise ValueError(f"{name} is {x.dtype} on {x.device}, gates {gates.dtype} on {gates.device}")
 
 
 def _pick_batch_tile(g: int, b: int, n_sms: int) -> int:
@@ -95,33 +177,84 @@ def _pack_wh(wh: torch.Tensor) -> torch.Tensor:
     )
 
 
-def _launch(gates: torch.Tensor, wh: torch.Tensor, batch_tile: int = 0) -> torch.Tensor:
-    """Launch the kernel on (T, G, B, 4H) + (G, H, 4H) CUDA tensors."""
-    from ._build import load
+def _pack_wh_t(wh: torch.Tensor) -> torch.Tensor:
+    """(G, H, 4H) → (G, H/4, 4H, 4) for ``dz @ Whᵀ``: thread p of a block
+    reads row ``p // 4`` of Wh, columns ``(p % 4) * H + 4j .. 4j + 3`` as the
+    j-th float4: packed[g, j, p, r] = wh[g, p // 4, (p % 4) * H + 4j + r]."""
+    g, h_dim, four_h = wh.shape
+    w = wh.reshape(g, h_dim, 4, h_dim // 4, 4)  # [g, u, q, j, r]
+    return w.permute(0, 3, 1, 2, 4).reshape(g, h_dim // 4, four_h, 4).contiguous()
 
+
+def _kernel_shape(gates: torch.Tensor) -> Tuple[int, int, int, int]:
     t_len, g, b, four_h = gates.shape
     h_dim = four_h // 4
     if h_dim % 8 or h_dim > 128:
-        raise ValueError(f"the CUDA LSTM kernel takes H % 8 == 0 and H <= 128, got H={h_dim}")
-    if not gates.is_contiguous():
-        raise ValueError("gates must be contiguous")
-    hs = torch.empty((t_len, g, b, h_dim), device=gates.device, dtype=torch.float32)
-    if hs.numel() == 0:
-        return hs
-    whp = _pack_wh(wh)
-    fn = load("lstm_scan").lstm_scan_grouped_f32
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        raise ValueError(f"the CUDA LSTM kernels take H % 8 == 0 and H <= 128, got H={h_dim}")
+    return t_len, g, b, h_dim
+
+
+def _contiguous(**tensors: torch.Tensor) -> None:
+    for name, x in tensors.items():
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _call(lib: str, fn_name: str, device: torch.device, *args) -> None:
+    """Call a C entry point with tensors as pointers, ints as ints and the
+    current stream last; raise on a CUDA error."""
+    from ._build import load
+
+    fn = getattr(load(lib), fn_name)
+    fn.argtypes = [ctypes.c_void_p if isinstance(a, torch.Tensor) else ctypes.c_int
+                   for a in args] + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    n_sms = torch.cuda.get_device_properties(gates.device).multi_processor_count
-    with torch.cuda.device(gates.device):
-        stream = torch.cuda.current_stream(gates.device).cuda_stream
-        err = fn(
-            gates.data_ptr(), whp.data_ptr(), hs.data_ptr(),
-            t_len, g, b, h_dim, batch_tile or _pick_batch_tile(g, b, n_sms), stream,
-        )
+    values = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    with torch.cuda.device(device):
+        err = fn(*values, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"lstm_scan_grouped_f32 launch failed: cudaError {err}")
-    return hs
+        raise RuntimeError(f"{fn_name} launch failed: cudaError {err}")
+
+
+def _tile(g: int, b: int, device: torch.device, batch_tile: int) -> int:
+    n_sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return batch_tile or _pick_batch_tile(g, b, n_sms)
+
+
+def _launch(gates: torch.Tensor, wh: torch.Tensor, batch_tile: int = 0,
+            save_c: bool = False):
+    """Launch the forward kernel on (T, G, B, 4H) + (G, H, 4H) CUDA tensors:
+    hs, or (hs, cs) with ``save_c``."""
+    t_len, g, b, h_dim = _kernel_shape(gates)
+    _contiguous(gates=gates)
+    hs = torch.empty((t_len, g, b, h_dim), device=gates.device, dtype=torch.float32)
+    cs = torch.empty_like(hs) if save_c else None
+    if hs.numel():
+        tile = _tile(g, b, gates.device, batch_tile)
+        if save_c:
+            _call("lstm_scan", "lstm_scan_fwd_res_grouped_f32", gates.device,
+                  gates, _pack_wh(wh), hs, cs, t_len, g, b, h_dim, tile)
+        else:
+            _call("lstm_scan", "lstm_scan_grouped_f32", gates.device,
+                  gates, _pack_wh(wh), hs, t_len, g, b, h_dim, tile)
+    return (hs, cs) if save_c else hs
+
+
+def _launch_bwd(gates, hs, cs, wh, dhout, batch_tile: int = 0) -> torch.Tensor:
+    """Launch the reverse sweep on CUDA tensors: dgates (T, G, B, 4H)."""
+    t_len, g, b, h_dim = _kernel_shape(gates)
+    _contiguous(gates=gates, hs=hs, cs=cs, dhout=dhout)
+    dgates = torch.empty_like(gates)
+    if dgates.numel():
+        _call("lstm_train", "lstm_bwd_grouped_f32", gates.device,
+              gates, hs, cs, dhout, _pack_wh(wh), _pack_wh_t(wh), dgates,
+              t_len, g, b, h_dim, _tile(g, b, gates.device, batch_tile))
+    return dgates
+
+
+def _unsupported(x: torch.Tensor) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
 
 
 def lstm_scan_grouped(gates: torch.Tensor, wh: torch.Tensor) -> torch.Tensor:
@@ -129,8 +262,7 @@ def lstm_scan_grouped(gates: torch.Tensor, wh: torch.Tensor) -> torch.Tensor:
     _check(gates, wh, 4)
     if gates.device.type == "cpu":
         return lstm_scan_reference_grouped(gates, wh)
-    if gates.device.type != "cuda":
-        raise ValueError(f"unsupported device {gates.device}")
+    _unsupported(gates)
     hs = _launch(gates, wh)
     lstm_scan_grouped.launches += 1
     return hs
@@ -141,12 +273,94 @@ def lstm_scan(gates: torch.Tensor, wh: torch.Tensor) -> torch.Tensor:
     _check(gates, wh, 3)
     if gates.device.type == "cpu":
         return lstm_scan_reference(gates, wh)
-    if gates.device.type != "cuda":
-        raise ValueError(f"unsupported device {gates.device}")
+    _unsupported(gates)
     hs = _launch(gates[:, None], wh[None])[:, 0]
     lstm_scan.launches += 1
     return hs
 
 
+def lstm_scan_fwd_res_grouped(
+    gates: torch.Tensor, wh: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3: (T, G, B, 4H) + (G, H, 4H) → hs, cs (T, G, B, H), one launch on CUDA."""
+    _check(gates, wh, 4, cpu_float64=True)
+    if gates.device.type == "cpu":
+        return lstm_scan_fwd_res_reference_grouped(gates, wh)
+    _unsupported(gates)
+    out = _launch(gates, wh, save_c=True)
+    lstm_scan_fwd_res_grouped.launches += 1
+    return out
+
+
+def lstm_dwh_grouped(hs: torch.Tensor, dgates: torch.Tensor) -> torch.Tensor:
+    """dWh (G, H, 4H) = Σ over t ≥ 1 and b of hs[t-1]ᵀ dgates[t]; hs
+    (T, G, B, H), dgates (T, G, B, 4H). One launch of the tiled fp32
+    reduction on CUDA (not a library product)."""
+    _check_like(dgates, hs=hs)
+    if dgates.device.type == "cpu":
+        return lstm_dwh_reference_grouped(hs, dgates)
+    _unsupported(dgates)
+    if dgates.dtype != torch.float32:
+        raise TypeError(f"expected float32, got {dgates.dtype}")
+    t_len, g, b, h_dim = _kernel_shape(dgates)
+    _contiguous(hs=hs, dgates=dgates)
+    dwh = torch.empty((g, h_dim, 4 * h_dim), device=dgates.device, dtype=torch.float32)
+    if dwh.numel():
+        _call("lstm_train", "lstm_dwh_grouped_f32", dgates.device,
+              hs, dgates, dwh, t_len, g, b, h_dim)
+    lstm_dwh_grouped.launches += 1
+    return dwh
+
+
+def lstm_scan_bwd_grouped(
+    gates: torch.Tensor, hs: torch.Tensor, cs: torch.Tensor, wh: torch.Tensor,
+    dhout: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K4: the reverse sweep → dgates (T, G, B, 4H), dwh (G, H, 4H).
+
+    On CUDA: one launch of the sweep, then :func:`lstm_dwh_grouped`.
+    """
+    _check(gates, wh, 4, cpu_float64=True)
+    _check_like(gates, hs=hs, cs=cs, dhout=dhout)
+    if gates.device.type == "cpu":
+        return lstm_scan_bwd_reference_grouped(gates, hs, cs, wh, dhout)
+    _unsupported(gates)
+    dgates = _launch_bwd(gates, hs, cs, wh, dhout)
+    lstm_scan_bwd_grouped.launches += 1
+    return dgates, lstm_dwh_grouped(hs, dgates)
+
+
+class LSTMRecurrenceGrouped(torch.autograd.Function):
+    """K5: the differentiable grouped recurrence, gates (T, G, B, 4H) and
+    wh (G, H, 4H) → hs (T, G, B, H). The forward runs K3 and saves hs and
+    cs; the backward runs K4. (``lstm_recurrence_grouped``'s custom_vjp in
+    the JAX package.)"""
+
+    @staticmethod
+    def forward(ctx, gates: torch.Tensor, wh: torch.Tensor) -> torch.Tensor:
+        hs, cs = lstm_scan_fwd_res_grouped(gates, wh)
+        ctx.save_for_backward(gates, wh, hs, cs)
+        return hs
+
+    @staticmethod
+    def backward(ctx, dhs: torch.Tensor):
+        gates, wh, hs, cs = ctx.saved_tensors
+        return lstm_scan_bwd_grouped(gates, hs, cs, wh, dhs.contiguous())
+
+
+def lstm_recurrence_grouped(gates: torch.Tensor, wh: torch.Tensor) -> torch.Tensor:
+    """K5: differentiable (T, G, B, 4H) + (G, H, 4H) → (T, G, B, H)."""
+    return LSTMRecurrenceGrouped.apply(gates, wh)
+
+
+def lstm_recurrence(gates: torch.Tensor, wh: torch.Tensor) -> torch.Tensor:
+    """K5 at G = 1: differentiable (T, B, 4H) + (H, 4H) → (T, B, H)."""
+    _check(gates, wh, 3, cpu_float64=True)
+    return LSTMRecurrenceGrouped.apply(gates[:, None], wh[None])[:, 0]
+
+
 lstm_scan_grouped.launches = 0
 lstm_scan.launches = 0
+lstm_scan_fwd_res_grouped.launches = 0
+lstm_scan_bwd_grouped.launches = 0
+lstm_dwh_grouped.launches = 0

@@ -141,6 +141,19 @@ def test_builder_is_seeded_and_inference_only():
     for (ka, va), (kb, vb) in zip(a.state_dict().items(), b.state_dict().items()):
         assert ka == kb and torch.equal(va, vb)
     assert not a.training
+    # train mode runs, and moves the BatchNorm running statistics as Flax
+    # does: ra = 0.99 * ra + 0.01 * batch, with the biased batch variance
+    seen = {}
+    a.res_block1.conv1.register_forward_hook(lambda m, i, o: seen.update(x=o.detach()))
+    before_mean = a.res_block1.bn1.running_mean.clone()
+    before_var = a.res_block1.bn1.running_var.clone()
     a.train()
-    with pytest.raises(RuntimeError, match="eval"):
-        a(torch.zeros(1, 8, 12))
+    x = torch.from_numpy(np.random.default_rng(0).normal(size=(2, 8, 12)).astype(np.float32))
+    logits = a(x, generator=torch.Generator().manual_seed(0))
+    assert logits.shape == (2, 2) and torch.isfinite(logits).all()
+    batch_mean = seen["x"].mean(dim=(0, 2))
+    batch_var = seen["x"].var(dim=(0, 2), unbiased=False)
+    torch.testing.assert_close(a.res_block1.bn1.running_mean,
+                               0.99 * before_mean + 0.01 * batch_mean, rtol=0, atol=1e-6)
+    torch.testing.assert_close(a.res_block1.bn1.running_var,
+                               0.99 * before_var + 0.01 * batch_var, rtol=0, atol=1e-6)

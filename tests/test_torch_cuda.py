@@ -11,12 +11,14 @@ import numpy as np
 import pytest
 import torch
 
-from robust_speech_analysis_framework_tpu_torch.models.cnn_lstm import build_cnn_lstm
+from robust_speech_analysis_framework_tpu_torch.models.cnn_lstm import CNNLSTM, build_cnn_lstm
 from robust_speech_analysis_framework_tpu_torch.ops.cuda import lstm as lstm_ops
+from robust_speech_analysis_framework_tpu_torch.train import loops
 
 pytestmark = pytest.mark.cuda
 
 ATOL = 1e-5  # fp32 kernel vs fp32 plain version: summation order only
+DWH_TOL = 1e-4  # dWh sums T·B products: relative
 
 
 @pytest.fixture
@@ -64,3 +66,51 @@ def test_cnn_lstm_on_card_matches_cpu(cuda_device):
         cpu = model.cpu()(x, lengths)
     assert lstm_ops.lstm_scan_grouped.launches == before + 2
     torch.testing.assert_close(card, cpu, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("t,b,h", [(37, 3, 8), (300, 17, 128), (64, 9, 40), (1, 5, 16)])
+def test_training_kernels_match_plain_versions(cuda_device, t, b, h):
+    """K3 (hs, cs), K4 (dgates) and the dWh kernel against their plain
+    versions on the card, one launch each."""
+    rng = np.random.default_rng(1)
+    gates = torch.from_numpy((rng.normal(size=(t, 2, b, 4 * h)) * 0.5).astype(np.float32))
+    wh = torch.from_numpy((rng.normal(size=(2, h, 4 * h)) / h**0.5).astype(np.float32))
+    dhout = torch.from_numpy(rng.normal(size=(t, 2, b, h)).astype(np.float32))
+    gates, wh, dhout = gates.to(cuda_device), wh.to(cuda_device), dhout.to(cuda_device)
+    counters = (lstm_ops.lstm_scan_fwd_res_grouped, lstm_ops.lstm_scan_bwd_grouped,
+                lstm_ops.lstm_dwh_grouped)
+    before = [c.launches for c in counters]
+    hs, cs = lstm_ops.lstm_scan_fwd_res_grouped(gates, wh)
+    dg, dwh = lstm_ops.lstm_scan_bwd_grouped(gates, hs, cs, wh, dhout)
+    torch.cuda.synchronize()
+    assert [c.launches for c in counters] == [n + 1 for n in before]
+    ref_hs, ref_cs = lstm_ops.lstm_scan_fwd_res_reference_grouped(gates, wh)
+    torch.testing.assert_close(hs, ref_hs, rtol=0, atol=ATOL)
+    torch.testing.assert_close(cs, ref_cs, rtol=0, atol=ATOL)
+    ref_dg, ref_dwh = lstm_ops.lstm_scan_bwd_reference_grouped(gates, hs, cs, wh, dhout)
+    torch.testing.assert_close(dg, ref_dg, rtol=0, atol=ATOL)
+    torch.testing.assert_close(dwh, ref_dwh, rtol=DWH_TOL, atol=DWH_TOL)
+
+
+def test_train_step_on_card_matches_cpu(cuda_device):
+    """One Adam step (dropout off) on the card, through K3/K4, and on the CPU
+    through the plain versions, from the same weights."""
+    rng = np.random.default_rng(2)
+    x = rng.normal(size=(3, 64, 24)).astype(np.float32)
+    lengths = np.array([64, 41, 7], np.int32)
+    labels = np.array([0, 1, 1])
+    template = CNNLSTM(input_dim=24, cnn_out_channels=16, lstm_hidden_dim=16, dropout_rate=0.0)
+    template.res_block1.dropout = template.res_block2.dropout = 0.0
+    weights = loops.Trainer(template, device="cpu").init_state(0, 1e-3).model.state_dict()
+    losses, states = [], []
+    for dev in (cuda_device, "cpu"):
+        trainer = loops.Trainer(template, device=dev, adam_eps=1e-5)
+        state = trainer.init_state(0, 1e-3, weights)
+        before = lstm_ops.lstm_scan_fwd_res_grouped.launches, lstm_ops.lstm_scan_bwd_grouped.launches
+        losses.append(float(trainer.train_step(state, x, lengths, labels, None)))
+        after = lstm_ops.lstm_scan_fwd_res_grouped.launches, lstm_ops.lstm_scan_bwd_grouped.launches
+        assert after == ((before[0] + 2, before[1] + 2) if dev != "cpu" else before)
+        states.append({k: v.cpu() for k, v in state.model.state_dict().items()})
+    assert losses[0] == pytest.approx(losses[1], abs=1e-5)
+    for key in states[1]:
+        torch.testing.assert_close(states[0][key], states[1][key], rtol=0, atol=1e-5)

@@ -18,6 +18,7 @@ from robust_speech_analysis_framework_tpu_torch.features.wav2vec2 import Wav2Vec
 from robust_speech_analysis_framework_tpu_torch.models.cnn_lstm import build_cnn_lstm
 from robust_speech_analysis_framework_tpu_torch.models.wav2vec2 import Wav2Vec2Config
 from robust_speech_analysis_framework_tpu_torch.serving import Predictor
+from robust_speech_analysis_framework_tpu_torch.train.loops import Trainer
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -66,7 +67,7 @@ def test_chip_smoke_fails_without_a_card():
     assert '"ok": true' not in proc.stdout
 
 
-@pytest.mark.parametrize("entry", ["extractor", "cnn_lstm", "predictor", "device"])
+@pytest.mark.parametrize("entry", ["extractor", "cnn_lstm", "predictor", "trainer", "device"])
 def test_entry_points_default_to_cuda(entry):
     build = {
         "extractor": lambda: Wav2Vec2Extractor(
@@ -75,6 +76,9 @@ def test_entry_points_default_to_cuda(entry):
             build_cnn_lstm(input_dim=8, cnn_out_channels=8, lstm_hidden_dim=8).parameters()
         ).device,
         "predictor": lambda: Predictor(
+            build_cnn_lstm(input_dim=8, cnn_out_channels=8, lstm_hidden_dim=8, device="cpu")
+        ).device,
+        "trainer": lambda: Trainer(
             build_cnn_lstm(input_dim=8, cnn_out_channels=8, lstm_hidden_dim=8, device="cpu")
         ).device,
         "device": lambda: resolve_device(),

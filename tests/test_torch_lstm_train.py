@@ -1,0 +1,205 @@
+"""Port's LSTM training functions (plain PyTorch versions of K3, K4, the dWh
+kernel, and K5) vs the JAX package, on the CPU.
+
+The same seeded numpy inputs go through the JAX package's Pallas training
+kernels in interpret mode, ``jax.vjp`` of its scan reference, and the port.
+Tolerances: atol 1e-5 for hs, cs and dgates (float32 recurrences over 37
+steps, summed in other orders); dWh, a sum over T·B products, rtol and atol
+1e-4, as the JAX package's own test of its backward kernel states.
+"""
+
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+import torch
+
+from robust_speech_analysis_framework_tpu.models.cnn_lstm import _lstm_scan as jax_frozen_scan
+from robust_speech_analysis_framework_tpu.ops.pallas import lstm as jax_lstm
+from robust_speech_analysis_framework_tpu_torch.ops.cuda import lstm as port_lstm
+
+ATOL = 1e-5
+DWH_TOL = 1e-4
+T, G, B, H = 37, 2, 3, 8  # T is not a multiple of the Pallas time block (8)
+
+
+@pytest.fixture(scope="module")
+def inputs():
+    rng = np.random.default_rng(0)
+    gates = (rng.normal(size=(T, G, B, 4 * H)) * 0.5).astype(np.float32)
+    wh = (rng.normal(size=(G, H, 4 * H)) * 0.3).astype(np.float32)
+    dhout = rng.normal(size=(T, G, B, H)).astype(np.float32)
+    return gates, wh, dhout
+
+
+def _t(*arrays):
+    return [torch.from_numpy(np.array(a)) for a in arrays]
+
+
+def test_fwd_res_matches_pallas_interpret(inputs):
+    gates, wh, _ = inputs
+    hs, cs = jax_lstm._lstm_fwd_res_pallas(jnp.asarray(gates), jnp.asarray(wh), 8, True)
+    ours_hs, ours_cs = port_lstm.lstm_scan_fwd_res_reference_grouped(*_t(gates, wh))
+    np.testing.assert_allclose(ours_hs.numpy(), np.asarray(hs), atol=ATOL)
+    np.testing.assert_allclose(ours_cs.numpy(), np.asarray(cs), atol=ATOL)
+
+
+def test_bwd_matches_pallas_interpret(inputs):
+    """Plain K4 (dWh included) against the TPU backward kernel in interpret
+    mode, which pads T to its block and sweeps the padded tail."""
+    gates, wh, dhout = inputs
+    hs, cs = jax_lstm._lstm_fwd_res_pallas(jnp.asarray(gates), jnp.asarray(wh), 8, True)
+    ref_dg, ref_dwh = jax_lstm._lstm_bwd_pallas(
+        jnp.asarray(gates), hs, cs, jnp.asarray(wh), jnp.asarray(dhout), 8, True)
+    dg, dwh = port_lstm.lstm_scan_bwd_reference_grouped(
+        *_t(gates, np.asarray(hs), np.asarray(cs), wh, dhout))
+    np.testing.assert_allclose(dg.numpy(), np.asarray(ref_dg), atol=ATOL)
+    np.testing.assert_allclose(dwh.numpy(), np.asarray(ref_dwh), rtol=DWH_TOL, atol=DWH_TOL)
+
+
+def test_bwd_matches_jax_vjp_of_scan(inputs):
+    gates, wh, dhout = inputs
+    _, vjp = jax.vjp(jax_lstm.lstm_scan_reference_grouped, jnp.asarray(gates), jnp.asarray(wh))
+    ref_dg, ref_dwh = vjp(jnp.asarray(dhout))
+    g_t, w_t, d_t = _t(gates, wh, dhout)
+    hs, cs = port_lstm.lstm_scan_fwd_res_grouped(g_t, w_t)
+    dg, dwh = port_lstm.lstm_scan_bwd_grouped(g_t, hs, cs, w_t, d_t)
+    np.testing.assert_allclose(dg.numpy(), np.asarray(ref_dg), atol=ATOL)
+    np.testing.assert_allclose(dwh.numpy(), np.asarray(ref_dwh), rtol=DWH_TOL, atol=DWH_TOL)
+
+
+def test_dwh_is_the_shifted_product(inputs):
+    """dWh = Σ_{t≥1, b} h_{t-1}ᵀ dz_t, written out in float64 numpy."""
+    gates, wh, dhout = inputs
+    hs, cs = port_lstm.lstm_scan_fwd_res_grouped(*_t(gates, wh))
+    dg, dwh = port_lstm.lstm_scan_bwd_grouped(*_t(gates), hs, cs, *_t(wh, dhout))
+    h64, d64 = hs.double().numpy(), dg.double().numpy()
+    ref = np.zeros((G, H, 4 * H))
+    for t in range(1, T):
+        for g in range(G):
+            ref[g] += h64[t - 1, g].T @ d64[t, g]
+    np.testing.assert_allclose(port_lstm.lstm_dwh_grouped(hs, dg).numpy(), ref,
+                               rtol=DWH_TOL, atol=DWH_TOL)
+    torch.testing.assert_close(port_lstm.lstm_dwh_grouped(hs, dg), dwh, rtol=0, atol=0)
+
+
+def test_autograd_function_matches_autograd_of_plain_forward(inputs):
+    gates, wh, dhout = inputs
+    g1, w1 = (x.clone().requires_grad_() for x in _t(gates, wh))
+    g2, w2 = (x.clone().requires_grad_() for x in _t(gates, wh))
+    hs1 = port_lstm.lstm_recurrence_grouped(g1, w1)
+    hs2 = port_lstm.lstm_scan_reference_grouped(g2, w2)
+    torch.testing.assert_close(hs1, hs2, rtol=0, atol=0)
+    d = torch.from_numpy(dhout)
+    hs1.backward(d)
+    hs2.backward(d)
+    torch.testing.assert_close(g1.grad, g2.grad, rtol=0, atol=ATOL)
+    torch.testing.assert_close(w1.grad, w2.grad, rtol=DWH_TOL, atol=DWH_TOL)
+
+
+def test_autograd_function_gradcheck_float64():
+    """K5's backward is the derivative of its forward (finite differences in
+    float64; the plain versions accept float64 on the CPU)."""
+    rng = np.random.default_rng(5)
+    gates = torch.from_numpy(rng.normal(size=(6, 2, 2, 16)) * 0.5).requires_grad_()
+    wh = torch.from_numpy(rng.normal(size=(2, 4, 16)) * 0.3).requires_grad_()
+    assert torch.autograd.gradcheck(port_lstm.lstm_recurrence_grouped, (gates, wh))
+    assert torch.autograd.gradcheck(port_lstm.lstm_recurrence, (gates[:, 0], wh[0]))
+
+
+def test_single_direction_matches_jax_custom_vjp(inputs):
+    """K5 at G = 1 against the JAX package's ``lstm_recurrence`` (its CPU
+    branch: jax.vjp of the scan)."""
+    gates, wh, dhout = inputs
+    g0, w0, d0 = gates[:, 0], wh[0], dhout[:, 0]
+
+    def loss(g, w):
+        return jnp.sum(jax_lstm.lstm_recurrence(g, w) * d0)
+
+    ref_dg, ref_dwh = jax.grad(loss, argnums=(0, 1))(jnp.asarray(g0), jnp.asarray(w0))
+    g_t, w_t = (x.clone().requires_grad_() for x in _t(g0, w0))
+    (port_lstm.lstm_recurrence(g_t, w_t) * torch.from_numpy(d0)).sum().backward()
+    np.testing.assert_allclose(g_t.grad.numpy(), np.asarray(ref_dg), atol=ATOL)
+    np.testing.assert_allclose(w_t.grad.numpy(), np.asarray(ref_dwh), rtol=DWH_TOL, atol=DWH_TOL)
+
+
+def test_ragged_tail_matches_frozen_scan(inputs):
+    """The port runs the recurrence on past a sequence's length (like the
+    TPU kernel); the JAX CPU path freezes state there. With dL/dh zero past
+    the length, as the model's attention mask makes it, both give the same
+    gradients for every gate and for Wh."""
+    gates, wh, dhout = inputs
+    lengths = np.array([37, 20, 5], np.int32)
+    alive = (np.arange(T)[:, None] < lengths[None, :])[:, :, None]  # (T, B, 1)
+    d0 = np.where(alive, dhout[:, 0], 0.0).astype(np.float32)
+    _, vjp = jax.vjp(lambda g, w: jax_frozen_scan(g, w, jnp.asarray(lengths)),
+                     jnp.asarray(gates[:, 0]), jnp.asarray(wh[0]))
+    ref_dg, ref_dwh = vjp(jnp.asarray(d0))
+    g_t, w_t = (x.clone().requires_grad_() for x in _t(gates[:, 0], wh[0]))
+    (port_lstm.lstm_recurrence(g_t, w_t) * torch.from_numpy(d0)).sum().backward()
+    np.testing.assert_allclose(g_t.grad.numpy(), np.asarray(ref_dg), atol=ATOL)
+    np.testing.assert_allclose(w_t.grad.numpy(), np.asarray(ref_dwh), rtol=DWH_TOL, atol=DWH_TOL)
+    assert not g_t.grad.numpy()[~np.broadcast_to(alive, g_t.grad.shape)].any()
+
+
+def test_single_step_sequence():
+    """T = 1: no h_{t-1} term, so dWh is zero; dgates still match JAX."""
+    rng = np.random.default_rng(6)
+    gates = (rng.normal(size=(1, 2, 3, 32)) * 0.5).astype(np.float32)
+    wh = (rng.normal(size=(2, 8, 32)) * 0.3).astype(np.float32)
+    dhout = rng.normal(size=(1, 2, 3, 8)).astype(np.float32)
+    _, vjp = jax.vjp(jax_lstm.lstm_scan_reference_grouped, jnp.asarray(gates), jnp.asarray(wh))
+    ref_dg, _ = vjp(jnp.asarray(dhout))
+    g_t, w_t, d_t = _t(gates, wh, dhout)
+    hs, cs = port_lstm.lstm_scan_fwd_res_grouped(g_t, w_t)
+    dg, dwh = port_lstm.lstm_scan_bwd_grouped(g_t, hs, cs, w_t, d_t)
+    np.testing.assert_allclose(dg.numpy(), np.asarray(ref_dg), atol=ATOL)
+    assert dwh.shape == (2, 8, 32) and not dwh.any()
+
+
+@pytest.mark.parametrize("kernel", ["K3", "K4", "dWh"])
+def test_wrappers_send_cpu_tensors_to_plain_versions(inputs, kernel):
+    gates, wh, dhout = inputs
+    g_t, w_t, d_t = _t(gates, wh, dhout)
+    hs, cs = port_lstm.lstm_scan_fwd_res_reference_grouped(g_t, w_t)
+    wrapper, args, plain = {
+        "K3": (port_lstm.lstm_scan_fwd_res_grouped, (g_t, w_t),
+               port_lstm.lstm_scan_fwd_res_reference_grouped),
+        "K4": (port_lstm.lstm_scan_bwd_grouped, (g_t, hs, cs, w_t, d_t),
+               port_lstm.lstm_scan_bwd_reference_grouped),
+        "dWh": (port_lstm.lstm_dwh_grouped, (hs, g_t), port_lstm.lstm_dwh_reference_grouped),
+    }[kernel]
+    before = wrapper.launches
+    out, ref = wrapper(*args), plain(*args)
+    assert wrapper.launches == before  # no kernel launch on the CPU
+    for a, b in zip(out if isinstance(out, tuple) else (out,),
+                    ref if isinstance(ref, tuple) else (ref,)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_training_wrappers_reject_bad_inputs(inputs):
+    gates, wh, dhout = inputs
+    g_t, w_t, d_t = _t(gates, wh, dhout)
+    hs, cs = port_lstm.lstm_scan_fwd_res_grouped(g_t, w_t)
+    with pytest.raises(ValueError, match="dhout"):
+        port_lstm.lstm_scan_bwd_grouped(g_t, hs, cs, w_t, d_t[:-1])
+    with pytest.raises(ValueError, match="cs"):
+        port_lstm.lstm_scan_bwd_grouped(g_t, hs, cs.double(), w_t, d_t)
+    with pytest.raises(TypeError):
+        port_lstm.lstm_scan_fwd_res_grouped(g_t.half(), w_t.half())
+    with pytest.raises(ValueError):
+        port_lstm.lstm_scan_fwd_res_grouped(g_t, w_t[:, :, :-4])
+
+
+def test_wh_transpose_packing():
+    """The layout the reverse sweep reads for dz @ Whᵀ:
+    packed[g, j, p, r] = wh[g, p // 4, (p % 4) * H + 4j + r]."""
+    rng = np.random.default_rng(2)
+    wh = torch.from_numpy(rng.normal(size=(2, 8, 32)).astype(np.float32))
+    packed = port_lstm._pack_wh_t(wh)
+    assert packed.shape == (2, 2, 32, 4)
+    for p in range(32):
+        for j in range(2):
+            for r in range(4):
+                assert packed[1, j, p, r] == wh[1, p // 4, (p % 4) * 8 + 4 * j + r]
