@@ -39,7 +39,21 @@ without them. Phases, each of which raises on failure:
    peak memory, and a profile of one train step;
 7. train-step parity: one step of the flagship model (B=2, T=512, dropout
    off) on the card and through the plain path on the CPU from the same
-   weights: loss, gradients, updated parameters and BatchNorm statistics.
+   weights: loss, gradients, updated parameters and BatchNorm statistics;
+8. viterbi-kernels: K6 (viterbi_forward_costs) and K7 (viterbi_path)
+   against their plain versions on the card, bit for bit (max |Δc| = 0,
+   identical paths), at a ragged shape (B=3, T=37, C=7, both weight
+   schemes), the openSMILE shape (B=4, T=6485, C=7: a 60 s file's bucket)
+   and the Praat shape of the next slice (B=8, T=5997, C=15), with times
+   beside the plain version's and the card's bound;
+9. opensmile (the third main path): a seeded corpus of 16 speech-like
+   16 kHz files of 20–60 s (three length buckets) through
+   OpenSmileExtractor.extract_arrays on the card, counters reset just
+   before and read just after (one K6 and one K7 launch per sub-batch);
+   first-pass and steady wall time (median of 3), audio-s/s, the host
+   period march's time and share, peak memory, a profile of one sub-batch;
+   16 × 912 finite values; two short files card vs CPU within the
+   tolerance families of the JAX package's batched-vs-serial test.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.
@@ -47,6 +61,7 @@ The last two lines are the kernels' JSON record and
 
 from __future__ import annotations
 
+import collections
 import copy
 import json
 import os
@@ -65,6 +80,7 @@ from robust_speech_analysis_framework_tpu_torch.eval.splits import (
     StratifiedKFold,
     train_test_indices,
 )
+from robust_speech_analysis_framework_tpu_torch.features import opensmile as opensmile_mod
 from robust_speech_analysis_framework_tpu_torch.features.wav2vec2 import Wav2Vec2Extractor
 from robust_speech_analysis_framework_tpu_torch.models.cnn_lstm import (
     CNNLSTM,
@@ -74,6 +90,7 @@ from robust_speech_analysis_framework_tpu_torch.models.cnn_lstm import (
 from robust_speech_analysis_framework_tpu_torch.models.wav2vec2 import Wav2Vec2Config
 from robust_speech_analysis_framework_tpu_torch.ops.cuda import _build
 from robust_speech_analysis_framework_tpu_torch.ops.cuda import lstm as lstm_ops
+from robust_speech_analysis_framework_tpu_torch.ops.cuda import viterbi as viterbi_ops
 from robust_speech_analysis_framework_tpu_torch.serving import Predictor
 from robust_speech_analysis_framework_tpu_torch.train import loops
 
@@ -103,7 +120,26 @@ TRAIN_EPOCHS = 3
 
 SOURCE = "robust_speech_analysis_framework_tpu_torch/csrc/lstm_scan.cu"
 TRAIN_SOURCE = "robust_speech_analysis_framework_tpu_torch/csrc/lstm_train.cu"
+VITERBI_SOURCE = "robust_speech_analysis_framework_tpu_torch/csrc/viterbi.cu"
 PALLAS = "robust_speech_analysis_framework_tpu/ops/pallas/lstm.py"
+PALLAS_VITERBI = "robust_speech_analysis_framework_tpu/ops/pallas/viterbi.py"
+
+# Viterbi weight schemes: openSMILE's (wTvv, wTuu, wTvuv of ShsParams) and
+# Praat's at a 10 ms step (octave-jump 0.35, voiced/unvoiced 0.14, w_same 0)
+OPENSMILE_W = (10.0, 0.0, 10.0)
+PRAAT_W = (0.35, 0.0, 0.14)
+VITERBI_SHAPES = {  # B, T, C, weights
+    "ragged-opensmile": (3, 37, 7, OPENSMILE_W),
+    "ragged-praat": (3, 37, 7, PRAAT_W),
+    # one 60 s file's bucket: bucket_size(960000, 8000) = 1037971 samples
+    "opensmile": (4, 6485, 7, OPENSMILE_W),
+    # 60 s at Praat's 10 ms step with its 40 ms window: 5997 frames
+    "praat": (8, 5997, 15, PRAAT_W),
+}
+SR = 16000
+OS_FILES, OS_MIN_S, OS_MAX_S = 16, 20.0, 60.0
+# card vs CPU on extraction: the JAX package's batched-vs-serial families
+OS_MEDIAN_TOL, OS_MEAN_TOL, OS_VQ_MEAN_TOL = 1e-5, 2e-4, 5e-2
 
 
 def log(msg: str) -> None:
@@ -434,9 +470,12 @@ def _synthetic_corpus(seed: int):
 
 
 def _counters():
-    return {name: getattr(lstm_ops, name) for name in (
+    counters = {name: getattr(lstm_ops, name) for name in (
         "lstm_scan_grouped", "lstm_scan", "lstm_scan_fwd_res_grouped",
         "lstm_scan_bwd_grouped", "lstm_dwh_grouped")}
+    counters.update({name: getattr(viterbi_ops, name)
+                     for name in ("viterbi_forward_costs", "viterbi_path")})
+    return counters
 
 
 def training_phase(dev: torch.device) -> dict:
@@ -572,6 +611,180 @@ def parity_phase(dev: torch.device) -> None:
         raise AssertionError("the train step on the card disagrees with the CPU")
 
 
+def viterbi_bound_ms(b: int, t: int, c: int, path: bool) -> tuple:
+    """Least time for K6 (forward costs) or K7 (the path): lf, v, local in
+    and c (K6) or the int64 path (K7) out once; per step and file C² pairs
+    of sub, abs, mul, add, min and C adds, twice for K7 (both directions),
+    which also takes C subs, adds and compares per frame."""
+    steps = b * (t - 1) * (5 * c * c + c)
+    if path:
+        return bound_ms(4 * 3 * b * t * c + 8 * b * t, 2 * steps + 3 * b * t * c)
+    return bound_ms(4 * 4 * b * t * c, steps)
+
+
+def _viterbi_inputs(dev, gen, b, t, c):
+    """Candidate stacks like the pitch chains': 30 % unvoiced slots, log2 of
+    60–500 Hz, local costs in [-1, 3)."""
+    voiced = torch.rand(b, t, c, device=dev, generator=gen) >= 0.3
+    freqs = 60 + 440 * torch.rand(b, t, c, device=dev, generator=gen)
+    lf = torch.log2(torch.where(voiced, freqs, 1.0))
+    local = 4 * torch.rand(b, t, c, device=dev, generator=gen) - 1
+    return lf, voiced.float(), local
+
+
+def viterbi_kernel_phase(dev: torch.device) -> dict:
+    """K6/K7 against their plain versions (bit-exact) at the ragged,
+    openSMILE and Praat shapes, with times and bounds."""
+    gen = torch.Generator(device=dev).manual_seed(4)
+    records = {"viterbi_forward_costs": {"max_abs_err": 0.0},
+               "viterbi_path": {"max_abs_err": 0.0}}
+    for label, (b, t, c, w) in VITERBI_SHAPES.items():
+        lf, v, local = _viterbi_inputs(dev, gen, b, t, c)
+        costs = viterbi_ops.viterbi_forward_costs(lf, v, local, *w)
+        path = viterbi_ops.viterbi_path(lf, v, local, *w)
+        torch.cuda.synchronize()
+        ref_costs = viterbi_ops.viterbi_forward_costs_reference(lf, v, local, *w)
+        ref_path = viterbi_ops.viterbi_path_reference(lf, v, local, *w)
+        err = float((costs - ref_costs).abs().max())
+        same = float((path == ref_path).float().mean())
+        log(f"[viterbi-kernels] {label} B={b} T={t} C={c} w={w}: K6 max|dc|={err:.3e}, "
+            f"K7 paths identical on {same:.6%} of frames (required: 0 and 100 %)")
+        if err != 0.0 or not torch.equal(path, ref_path):
+            raise AssertionError(f"a Viterbi kernel differs from its plain version at {label}")
+        if label.startswith("ragged"):
+            continue
+        args = (lf, v, local, *w)
+        for name, kernel, plain, is_path in (
+            ("viterbi_forward_costs", viterbi_ops.viterbi_forward_costs,
+             viterbi_ops.viterbi_forward_costs_reference, False),
+            ("viterbi_path", viterbi_ops.viterbi_path, viterbi_ops.viterbi_path_reference, True),
+        ):
+            ms = cuda_ms(lambda: kernel(*args), 5)
+            plain_ms = cuda_ms(lambda: plain(*args), 1)
+            bound, bound_by = viterbi_bound_ms(b, t, c, is_path)
+            timing = {"shape": f"B={b} T={t} C={c}", "ms": ms, "plain_ms": plain_ms,
+                      "bound_ms": bound, "bound_by": bound_by, "library_ms": None}
+            log(f"[viterbi-kernels] {name} {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                f"bound {bound:.6f} ms ({bound_by}); no single PyTorch call computes a "
+                f"min-plus Viterbi")
+            if label == "opensmile":
+                records[name].update(timing)
+            else:
+                records[name]["praat"] = timing
+    return records
+
+
+def _speech(seconds: float, f0: float, seed: int) -> np.ndarray:
+    """Speech-like 16 kHz audio: 11 harmonics with 3 Hz vibrato, syllable
+    gating, a little noise, quantised to 16-bit PCM (the recipe of
+    benchmarks/suite.py:31-43, with the vibrato's phase integrated)."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(seconds * SR)) / SR
+    # 3 Hz vibrato of ±1 % as a true frequency modulation: the benchmark's
+    # phase f0·(1 + 0.01·sin)·t sweeps ±0.19·f0·t Hz, so its files stop
+    # being voiced after a few seconds
+    phase = f0 * (t + 0.01 * (1 - np.cos(2 * np.pi * 3 * t)) / (2 * np.pi * 3))
+    v = sum(np.sin(2 * np.pi * k * phase) / k for k in range(1, 12))
+    gate = np.where((t % 0.6) < 0.42, 1.0, 0.02)
+    x = 0.3 * gate * v / np.abs(v).max() + 0.002 * rng.normal(size=len(t))
+    return (np.clip(np.round(x * 32768.0), -32768, 32767) / 32768.0).astype(np.float32)
+
+
+def opensmile_phase(dev: torch.device) -> dict:
+    """The third main path: openSMILE-912 extraction of a 16-file corpus."""
+    t0 = time.perf_counter()
+    lengths = np.linspace(OS_MIN_S, OS_MAX_S, OS_FILES)
+    corpus = {f"s{i:02d}.wav": _speech(s, 110 + 9 * i, i) for i, s in enumerate(lengths)}
+    audio_s = sum(len(x) for x in corpus.values()) / SR
+    extractor = opensmile_mod.OpenSmileExtractor(device=dev)
+    buckets = sorted({extractor._bucket_of(len(x)) for x in corpus.values()})
+    log(f"[opensmile] corpus: {OS_FILES} files, {OS_MIN_S}–{OS_MAX_S} s, {audio_s:.1f} audio-s "
+        f"in buckets {buckets} samples, made in {time.perf_counter() - t0:.2f} s")
+
+    march_s = []  # the host period march, timed per file
+    real_march = opensmile_mod.jitter_shimmer_llds
+
+    def timed_march(*args, **kwargs):
+        start = time.perf_counter()
+        out = real_march(*args, **kwargs)
+        march_s.append(time.perf_counter() - start)
+        return out
+
+    def extract():
+        march_s.clear()
+        start = time.perf_counter()
+        names, feats = extractor.extract_arrays(corpus, verbose=False)
+        torch.cuda.synchronize()
+        return names, feats, time.perf_counter() - start, sum(march_s)
+
+    opensmile_mod.jitter_shimmer_llds = timed_march
+    try:
+        counters = _counters()
+        torch.cuda.reset_peak_memory_stats(dev)
+        for fn in counters.values():
+            fn.launches = 0
+        names, feats, first_s, first_march = extract()
+        launches = {name: fn.launches for name, fn in counters.items()}
+        peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+        steady = [extract()[2:] for _ in range(3)]
+    finally:
+        opensmile_mod.jitter_shimmer_llds = real_march
+
+    walls = [s[0] for s in steady]
+    median = statistics.median(walls)
+    march = steady[walls.index(median)][1]
+    per_bucket = collections.Counter(extractor._bucket_of(len(x)) for x in corpus.values())
+    n_sub = sum(-(-n // extractor.pipeline_rows) for n in per_bucket.values())
+    log(f"[opensmile] first pass {first_s:.3f} s ({audio_s / first_s:.1f} audio-s/s; host march "
+        f"{first_march:.3f} s, {first_march / first_s:.1%}); steady median {median:.3f} s of "
+        f"{[round(w, 3) for w in walls]} s, {audio_s / median:.1f} audio-s/s; host march "
+        f"{march:.3f} s = {march / median:.1%} of the extraction; peak memory {peak_gib:.3f} GiB")
+    log(f"[opensmile] main-path launches: {launches}; expected one K6 and one K7 per "
+        f"sub-batch, {n_sub} sub-batches")
+    if not (launches["viterbi_forward_costs"] == launches["viterbi_path"] == n_sub
+            and sum(launches.values()) == 2 * n_sub):
+        raise AssertionError("the openSMILE path did not launch K6/K7, and only them, "
+                             "once per sub-batch")
+    if feats.shape != (OS_FILES, 912) or not np.isfinite(feats).all() or sorted(names) != sorted(corpus):
+        raise AssertionError(f"bad openSMILE features {feats.shape}")
+    col = opensmile_mod.feature_columns().index("F0final_sma_amean")
+    log(f"[opensmile] {feats.shape} finite; F0final_sma_amean over files "
+        f"{feats[:, col].min():.2f}–{feats[:, col].max():.2f} Hz")
+
+    big = [x for x in corpus.values() if extractor._bucket_of(len(x)) == buckets[-1]]
+    profile_device(f"one openSMILE sub-batch ({min(len(big), extractor.pipeline_rows)} files, "
+                   f"bucket {buckets[-1]})",
+                   lambda: extractor._sub_batch(buckets[-1], big[: extractor.pipeline_rows]), 12)
+
+    # the two files of tests/test_torch_cuda.py::test_opensmile_on_card_matches_cpu:
+    # steady harmonics without vibrato. Positional functionals of a contour
+    # with exact ties are decided by rounding: on corpus-recipe files
+    # voicing clips to exactly 1.0 on many frames, and which frame is the
+    # first at 1.0 moved 150 frames between card and CPU (PERF.md)
+    rng = np.random.default_rng(0)
+    short = {}
+    for i, seconds in enumerate((1.3, 2.2)):
+        t = np.arange(int(seconds * SR)) / SR
+        voiced = sum(np.sin(2 * np.pi * k * (125 + 20 * i) * t) / k for k in range(1, 12))
+        x = 0.3 * np.where((t % 0.6) < 0.42, 1.0, 0.02) * voiced / np.abs(voiced).max()
+        short[f"w{i}.wav"] = (x + 0.002 * rng.normal(size=len(t))).astype(np.float32)
+    card_names, card = extractor.extract_arrays(short, verbose=False)
+    cpu_names, cpu = opensmile_mod.OpenSmileExtractor(device="cpu").extract_arrays(
+        short, verbose=False)
+    rel = np.abs(card - cpu) / np.maximum(np.abs(cpu), 1e-3)
+    vq = np.array([any(k in c for k in ("jitter", "shimmer", "logHNR"))
+                   for c in opensmile_mod.feature_columns()])
+    stats = (float(np.median(rel)), float(rel[:, ~vq].mean()), float(rel[:, vq].mean()))
+    log(f"[opensmile] 1.3 s + 2.2 s files card vs CPU: median rel {stats[0]:.3e} (tol "
+        f"{OS_MEDIAN_TOL}), mean rel off voice quality {stats[1]:.3e} (tol {OS_MEAN_TOL}), "
+        f"on it {stats[2]:.3e} (tol {OS_VQ_MEAN_TOL}); max rel {rel.max():.3e} at "
+        f"{opensmile_mod.feature_columns()[int(rel.max(0).argmax())]}")
+    if not (card_names == cpu_names and stats[0] < OS_MEDIAN_TOL and stats[1] < OS_MEAN_TOL
+            and stats[2] < OS_VQ_MEAN_TOL):
+        raise AssertionError("openSMILE features on the card disagree with the CPU")
+    return launches
+
+
 def run(dev: torch.device, smi: str) -> None:
     """Every phase on ``dev``; prints the kernels' record and the result line."""
     log(f"[card] {smi}")
@@ -590,29 +803,35 @@ def run(dev: torch.device, smi: str) -> None:
 
     records = kernel_phase(dev)
     records.update(train_kernel_phase(dev))
+    records.update(viterbi_kernel_phase(dev))
     flagship_phase(dev)
     with tempfile.TemporaryDirectory() as tmp:
         serving = serving_phase(dev, tmp)
     training = training_phase(dev)
     parity_phase(dev)
+    opensmile = opensmile_phase(dev)
 
     kernels = []
-    for name, source, line in (
-        ("lstm_scan_grouped", SOURCE, 180), ("lstm_scan", SOURCE, 81),
-        ("lstm_scan_fwd_res_grouped", SOURCE, 342), ("lstm_scan_bwd_grouped", TRAIN_SOURCE, 383),
-        ("lstm_dwh_grouped", TRAIN_SOURCE, 319),
+    for name, source, replaces in (
+        ("lstm_scan_grouped", SOURCE, f"{PALLAS}:180"), ("lstm_scan", SOURCE, f"{PALLAS}:81"),
+        ("lstm_scan_fwd_res_grouped", SOURCE, f"{PALLAS}:342"),
+        ("lstm_scan_bwd_grouped", TRAIN_SOURCE, f"{PALLAS}:383"),
+        ("lstm_dwh_grouped", TRAIN_SOURCE, f"{PALLAS}:319"),
+        ("viterbi_forward_costs", VITERBI_SOURCE, f"{PALLAS_VITERBI}:93"),
+        ("viterbi_path", VITERBI_SOURCE, f"{PALLAS_VITERBI}:135"),
     ):
         rec = records[name]
-        by_path = {"serving": serving[name], "training": training[name]}
+        by_path = {"serving": serving[name], "training": training[name],
+                   "opensmile": opensmile[name]}
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": f"{PALLAS}:{line}", "launches": sum(by_path.values()),
+            "replaces": replaces, "launches": sum(by_path.values()),
             "launches_by_path": by_path,
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec["library_ms"], "shape": rec["shape"],
             "on_main_path": name != "lstm_scan",
-            **({"serving": rec["serving"]} if "serving" in rec else {}),
+            **{k: rec[k] for k in ("serving", "praat") if k in rec},
         })
     log(f"[card] {smi}")
     print(json.dumps({"kernels": kernels}))

@@ -90,3 +90,27 @@ def load(name: str) -> ctypes.CDLL:
                 _finish(name, out, _start(name, out))
             lib = _loaded[name] = ctypes.CDLL(out)
         return lib
+
+
+def _ctype(arg):
+    import torch
+
+    if isinstance(arg, torch.Tensor):
+        return ctypes.c_void_p
+    return ctypes.c_float if isinstance(arg, float) else ctypes.c_int
+
+
+def call(lib: str, fn_name: str, device, *args) -> None:
+    """Call a C entry point of ``csrc/<lib>.cu``: tensors as pointers, ints
+    as ints, floats as floats, the current stream of ``device`` last; raise
+    on a CUDA error."""
+    import torch
+
+    fn = getattr(load(lib), fn_name)
+    fn.argtypes = [_ctype(a) for a in args] + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    values = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    with torch.cuda.device(device):
+        err = fn(*values, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{fn_name} launch failed: cudaError {err}")

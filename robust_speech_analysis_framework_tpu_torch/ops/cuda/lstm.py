@@ -40,10 +40,11 @@ Each kernel's wrapper counts its launches in ``.launches``.
 
 from __future__ import annotations
 
-import ctypes
 from typing import Tuple
 
 import torch
+
+from ._build import call as _call
 
 
 def lstm_scan_fwd_res_reference_grouped(
@@ -198,22 +199,6 @@ def _contiguous(**tensors: torch.Tensor) -> None:
     for name, x in tensors.items():
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-
-
-def _call(lib: str, fn_name: str, device: torch.device, *args) -> None:
-    """Call a C entry point with tensors as pointers, ints as ints and the
-    current stream last; raise on a CUDA error."""
-    from ._build import load
-
-    fn = getattr(load(lib), fn_name)
-    fn.argtypes = [ctypes.c_void_p if isinstance(a, torch.Tensor) else ctypes.c_int
-                   for a in args] + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    values = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    with torch.cuda.device(device):
-        err = fn(*values, torch.cuda.current_stream(device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{fn_name} launch failed: cudaError {err}")
 
 
 def _tile(g: int, b: int, device: torch.device, batch_tile: int) -> int:

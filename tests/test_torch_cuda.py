@@ -114,3 +114,61 @@ def test_train_step_on_card_matches_cpu(cuda_device):
     assert losses[0] == pytest.approx(losses[1], abs=1e-5)
     for key in states[1]:
         torch.testing.assert_close(states[0][key], states[1][key], rtol=0, atol=1e-5)
+
+
+VITERBI_SCHEMES = {"opensmile": (10.0, 0.0, 10.0), "praat": (0.175, 0.0, 0.07)}
+
+
+@pytest.mark.parametrize("scheme", sorted(VITERBI_SCHEMES))
+@pytest.mark.parametrize("b,t,c", [(3, 37, 7), (4, 2000, 7), (2, 500, 15), (5, 1, 3)])
+def test_viterbi_kernels_equal_plain_versions(cuda_device, b, t, c, scheme):
+    """K6 forward costs and the K7 path bit-equal to their plain versions on
+    the card; one K6 launch for K6, one K6 (both directions) and one K7
+    launch for the path."""
+    from robust_speech_analysis_framework_tpu_torch.ops.cuda import viterbi
+
+    rng = np.random.default_rng(b * t + c)
+    freqs = np.where(rng.random((b, t, c)) < 0.3, 0.0, rng.uniform(60, 500, (b, t, c)))
+    lf = torch.from_numpy(np.log2(np.where(freqs > 0, freqs, 1.0)).astype(np.float32))
+    v = torch.from_numpy((freqs > 0).astype(np.float32))
+    local = torch.from_numpy(rng.uniform(-1.0, 3.0, (b, t, c)).astype(np.float32))
+    lf, v, local = lf.to(cuda_device), v.to(cuda_device), local.to(cuda_device)
+    w = VITERBI_SCHEMES[scheme]
+    before = viterbi.viterbi_forward_costs.launches, viterbi.viterbi_path.launches
+    costs = viterbi.viterbi_forward_costs(lf, v, local, *w)
+    path = viterbi.viterbi_path(lf, v, local, *w)
+    torch.cuda.synchronize()
+    assert (viterbi.viterbi_forward_costs.launches, viterbi.viterbi_path.launches) == (
+        before[0] + 2, before[1] + 1)
+    assert torch.equal(costs, viterbi.viterbi_forward_costs_reference(lf, v, local, *w))
+    assert torch.equal(path, viterbi.viterbi_path_reference(lf, v, local, *w))
+
+
+def test_opensmile_on_card_matches_cpu(cuda_device):
+    """Two short speech-like files through the extractor on the card (K7 per
+    sub-batch) and on the CPU, with the tolerance families of the JAX
+    package's batched-vs-serial test."""
+    from robust_speech_analysis_framework_tpu_torch.features.opensmile import (
+        OpenSmileExtractor,
+        feature_columns,
+    )
+    from robust_speech_analysis_framework_tpu_torch.ops.cuda import viterbi
+
+    rng = np.random.default_rng(0)
+    waves = {}
+    for i, seconds in enumerate((1.3, 2.2)):
+        t = np.arange(int(seconds * 16000)) / 16000
+        voiced = sum(np.sin(2 * np.pi * k * (125 + 20 * i) * t) / k for k in range(1, 12))
+        x = 0.3 * np.where((t % 0.6) < 0.42, 1.0, 0.02) * voiced / np.abs(voiced).max()
+        waves[f"w{i}.wav"] = (x + 0.002 * rng.normal(size=len(t))).astype(np.float32)
+    before = viterbi.viterbi_path.launches
+    names, card = OpenSmileExtractor(device=cuda_device).extract_arrays(waves, verbose=False)
+    assert viterbi.viterbi_path.launches == before + 2  # one per bucket
+    cpu_names, cpu = OpenSmileExtractor(device="cpu").extract_arrays(waves, verbose=False)
+    assert names == cpu_names and card.shape == (2, 912) and np.isfinite(card).all()
+    rel = np.abs(card - cpu) / np.maximum(np.abs(cpu), 1e-3)
+    vq = np.array([any(k in col for k in ("jitter", "shimmer", "logHNR"))
+                   for col in feature_columns()])
+    assert np.median(rel) < 1e-5
+    assert rel[:, ~vq].mean() < 2e-4
+    assert rel[:, vq].mean() < 5e-2

@@ -2,7 +2,8 @@
 
 Every module of ``robust_speech_analysis_framework_tpu_torch`` is imported in
 a fresh interpreter, which must end with neither ``jax``, ``flax``,
-``optax`` nor the JAX package in ``sys.modules``. Entry points built without
+``optax``, the JAX package nor ``pandas`` (absent on the card's machine) in
+``sys.modules``. Entry points built without
 ``device=`` use the card, and raise where there is none.
 """
 
@@ -14,6 +15,7 @@ import pytest
 import torch
 
 from robust_speech_analysis_framework_tpu_torch.device import resolve_device
+from robust_speech_analysis_framework_tpu_torch.features.opensmile import OpenSmileExtractor
 from robust_speech_analysis_framework_tpu_torch.features.wav2vec2 import Wav2Vec2Extractor
 from robust_speech_analysis_framework_tpu_torch.models.cnn_lstm import build_cnn_lstm
 from robust_speech_analysis_framework_tpu_torch.models.wav2vec2 import Wav2Vec2Config
@@ -28,7 +30,7 @@ import robust_speech_analysis_framework_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
-banned = ("jax", "jaxlib", "flax", "optax", "robust_speech_analysis_framework_tpu")
+banned = ("jax", "jaxlib", "flax", "optax", "robust_speech_analysis_framework_tpu", "pandas")
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in banned)
 print(len(names), leaked)
 sys.exit(1 if leaked else 0)
@@ -53,7 +55,7 @@ def test_port_imports_no_jax():
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 15  # every module of the slice was imported
+    assert n_modules >= 35  # every module of the three slices was imported
 
 
 def test_chip_smoke_fails_without_a_card():
@@ -67,7 +69,8 @@ def test_chip_smoke_fails_without_a_card():
     assert '"ok": true' not in proc.stdout
 
 
-@pytest.mark.parametrize("entry", ["extractor", "cnn_lstm", "predictor", "trainer", "device"])
+@pytest.mark.parametrize(
+    "entry", ["extractor", "cnn_lstm", "predictor", "trainer", "device", "opensmile"])
 def test_entry_points_default_to_cuda(entry):
     build = {
         "extractor": lambda: Wav2Vec2Extractor(
@@ -82,12 +85,28 @@ def test_entry_points_default_to_cuda(entry):
             build_cnn_lstm(input_dim=8, cnn_out_channels=8, lstm_hidden_dim=8, device="cpu")
         ).device,
         "device": lambda: resolve_device(),
+        "opensmile": lambda: OpenSmileExtractor().device,
     }[entry]
     if torch.cuda.is_available():
         assert build().type == "cuda"
     else:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             build()
+
+
+def test_opensmile_front_door_defaults_to_cuda():
+    import pandas as pd
+
+    from robust_speech_analysis_framework_tpu_torch.features.opensmile import (
+        extract_opensmile_features,
+    )
+
+    empty = pd.DataFrame({"filepath": []})
+    if torch.cuda.is_available():
+        assert extract_opensmile_features(empty).empty
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            extract_opensmile_features(empty)
 
 
 def test_cpu_must_be_asked_for():
