@@ -15,10 +15,12 @@ without them. Phases, each of which raises on failure:
    and the serving shape, with their times beside the plain version's, the
    cuDNN ``nn.LSTM`` yardstick and the card's bound; then the training
    kernels K3 (lstm_scan_fwd_res_grouped: hs, cs), K4
-   (lstm_scan_bwd_grouped: dgates, dWh) and the dWh kernel
-   (lstm_dwh_grouped) the same way at a ragged shape and the training shape
-   (T=4096, G=2, B=8, H=128), with cuDNN's biLSTM forward (K3) and backward
-   (K4) as yardsticks;
+   (lstm_scan_bwd_grouped: dgates, dWh), its gate pre-pass
+   (lstm_gate_acts_grouped) and the dWh kernel (lstm_dwh_grouped) the same
+   way at a ragged shape and the training shape (T=4096, G=2, B=8, H=128),
+   with cuDNN's biLSTM forward (K3) and backward (K4), ``torch.baddbmm``
+   with the activations (pre-pass) and ``torch.einsum`` (dWh) as
+   yardsticks; K4's sweep alone, and at batch tiles 1/2/4 at B=64;
 4. flagship forward: CNNLSTM(768, 128, 128), batch 128 × 4480 × 768,
    lengths 4378; two kernel launches per forward; logits of two rows agree
    with the same model on the CPU; median time and a profiler breakdown;
@@ -34,8 +36,8 @@ without them. Phases, each of which raises on failure:
    CNNLSTM(768, 128, 128) (batch 8, Adam 1e-3, dropout 0.5, plateau decay,
    early stop, best-weight restore) for 3 epochs, then ``evaluate_model``
    and the fold's metrics; counters reset just before and read just after
-   (two K3, two K4 and two dWh launches per train step, two K1 per eval
-   batch); loss per epoch, step time, audio-seconds trained per second,
+   (two launches each of K3, K4, its pre-pass and dWh per train step, two
+   K1 per eval batch); loss per epoch, step time, audio-seconds trained per second,
    peak memory, and a profile of one train step;
 7. train-step parity: one step of the flagship model (B=2, T=512, dropout
    off) on the card and through the plain path on the CPU from the same
@@ -184,6 +186,14 @@ def lstm_bwd_bound_ms(t: int, g: int, b: int, h: int) -> tuple:
     elementwise work."""
     bytes_moved = 4 * (2 * t * g * b * 4 * h + 3 * t * g * b * h + 2 * g * h * 4 * h)
     return bound_ms(bytes_moved, t * g * b * (3 * 2 * h * 4 * h + 25 * h))
+
+
+def gate_acts_bound_ms(t: int, g: int, b: int, h: int) -> tuple:
+    """Least time for K4's gate pre-pass: gates, hs and Wh in, the activated
+    gates out once; per row and step one (H × 4H) product, the gate add (4H)
+    and about four operations an activation."""
+    bytes_moved = 4 * (2 * t * g * b * 4 * h + t * g * b * h + g * h * 4 * h)
+    return bound_ms(bytes_moved, t * g * b * (2 * h * 4 * h + 4 * h + 4 * 4 * h))
 
 
 def dwh_bound_ms(t: int, g: int, b: int, h: int) -> tuple:
@@ -380,36 +390,59 @@ def serving_phase(dev: torch.device, tmp: str) -> dict:
     return launches
 
 
+SWEEP_TILE_SHAPE = (1024, 2, 64, 128)  # T, G, B, H for the sweep's batch-tile times
+
+
+def _train_kernel_inputs(dev, gen, t, g, b, h):
+    gates = torch.randn(t, g, b, 4 * h, device=dev, generator=gen) * 0.5
+    wh = (torch.rand(g, h, 4 * h, device=dev, generator=gen) * 2 - 1) / h**0.5
+    dhout = torch.randn(t, g, b, h, device=dev, generator=gen)
+    return gates, wh, dhout
+
+
+def _sweep_alone_ms(acts, cs, wh, dhout, tile: int, reps: int) -> float:
+    """Time of K4's sweep alone. It works in place, so each run gets a fresh
+    copy of the activations and the copy's own time is taken off."""
+    copy_ms = cuda_ms(acts.clone, reps)
+    both = cuda_ms(lambda: lstm_ops._launch_sweep(acts.clone(), cs, wh, dhout, tile), reps)
+    return both - copy_ms
+
+
 def train_kernel_phase(dev: torch.device) -> dict:
-    """K3, K4 and the dWh kernel against their plain versions; times at the
-    training shape beside cuDNN's biLSTM forward and backward."""
+    """K3, K4, its gate pre-pass and the dWh kernel against their plain
+    versions; times at the training shape beside cuDNN's biLSTM forward and
+    backward; K4's sweep alone and by batch tile."""
     gen = torch.Generator(device=dev).manual_seed(2)
     records = {name: {"max_abs_err": 0.0} for name in
-               ("lstm_scan_fwd_res_grouped", "lstm_scan_bwd_grouped", "lstm_dwh_grouped")}
+               ("lstm_scan_fwd_res_grouped", "lstm_scan_bwd_grouped", "lstm_gate_acts_grouped",
+                "lstm_dwh_grouped")}
     for label, (t, g, b, h) in {"ragged": (37, 2, 3, 8), "training": TRAIN_SHAPE}.items():
-        gates = torch.randn(t, g, b, 4 * h, device=dev, generator=gen) * 0.5
-        wh = (torch.rand(g, h, 4 * h, device=dev, generator=gen) * 2 - 1) / h**0.5
-        dhout = torch.randn(t, g, b, h, device=dev, generator=gen)
+        gates, wh, dhout = _train_kernel_inputs(dev, gen, t, g, b, h)
         hs, cs = lstm_ops.lstm_scan_fwd_res_grouped(gates, wh)
         dg, dwh = lstm_ops.lstm_scan_bwd_grouped(gates, hs, cs, wh, dhout)
+        acts = lstm_ops.lstm_gate_acts_grouped(gates, hs, wh)
         dwh_alone = lstm_ops.lstm_dwh_grouped(hs, dg)
         torch.cuda.synchronize()
         ref_hs, ref_cs = lstm_ops.lstm_scan_fwd_res_reference_grouped(gates, wh)
         ref_dg, ref_dwh = lstm_ops.lstm_scan_bwd_reference_grouped(gates, hs, cs, wh, dhout)
+        ref_acts = lstm_ops.lstm_gate_acts_reference_grouped(gates, hs, wh)
         scale = float(ref_dwh.abs().max())
         errs = {
             "lstm_scan_fwd_res_grouped": max(float((hs - ref_hs).abs().max()),
                                              float((cs - ref_cs).abs().max())),
             "lstm_scan_bwd_grouped": float((dg - ref_dg).abs().max()),
+            "lstm_gate_acts_grouped": float((acts - ref_acts).abs().max()),
             "lstm_dwh_grouped": float((dwh - ref_dwh).abs().max()),
         }
         log(f"[train-kernels] {label} T={t} G={g} B={b} H={h}: K3 hs/cs max|d|="
             f"{errs['lstm_scan_fwd_res_grouped']:.3e} (tol {KERNEL_TOL}); K4 dgates max|d|="
-            f"{errs['lstm_scan_bwd_grouped']:.3e} (tol {KERNEL_TOL}); dWh max|d|="
+            f"{errs['lstm_scan_bwd_grouped']:.3e} (tol {KERNEL_TOL}); its pre-pass max|d|="
+            f"{errs['lstm_gate_acts_grouped']:.3e} (tol {KERNEL_TOL}); dWh max|d|="
             f"{errs['lstm_dwh_grouped']:.3e} of max|dWh| {scale:.3e} "
             f"(tol {DWH_TOL} x max(1, max|dWh|))")
         if not (errs["lstm_scan_fwd_res_grouped"] <= KERNEL_TOL
                 and errs["lstm_scan_bwd_grouped"] <= KERNEL_TOL
+                and errs["lstm_gate_acts_grouped"] <= KERNEL_TOL
                 and errs["lstm_dwh_grouped"] <= DWH_TOL * max(1.0, scale)
                 and torch.equal(dwh, dwh_alone)):
             raise AssertionError(f"a training kernel disagrees with its plain version at {label}")
@@ -423,6 +456,18 @@ def train_kernel_phase(dev: torch.device) -> dict:
         x = torch.randn(t, b, h, device=dev, generator=gen, requires_grad=True)
         out, _ = lib(x)
         grad_out = torch.randn_like(out)
+        # direction-major copies for the pre-pass's yardstick, made outside its time
+        gates_gm = gates.transpose(0, 1).reshape(g, t * b, 4 * h)
+        hprev_gm = torch.cat([torch.zeros_like(hs[:1]), hs[:-1]]).transpose(0, 1).reshape(
+            g, t * b, h)
+
+        def baddbmm_acts():
+            z = torch.baddbmm(gates_gm, hprev_gm, wh)
+            z[..., : 2 * h].sigmoid_()
+            z[..., 2 * h : 3 * h].tanh_()
+            z[..., 3 * h :].sigmoid_()
+            return z
+
         cases = {
             "lstm_scan_fwd_res_grouped": (
                 lambda: lstm_ops.lstm_scan_fwd_res_grouped(gates, wh),
@@ -436,6 +481,11 @@ def train_kernel_phase(dev: torch.device) -> dict:
                                             retain_graph=True),
                 "cuDNN backward of that layer (dx and every weight)",
                 lstm_bwd_bound_ms(t, g, b, h)),
+            "lstm_gate_acts_grouped": (
+                lambda: lstm_ops.lstm_gate_acts_grouped(gates, hs, wh),
+                lambda: lstm_ops.lstm_gate_acts_reference_grouped(gates, hs, wh),
+                baddbmm_acts, "torch.baddbmm (cuBLAS) over direction-major copies, then "
+                "sigmoid_/tanh_ of the column blocks", gate_acts_bound_ms(t, g, b, h)),
             "lstm_dwh_grouped": (
                 lambda: lstm_ops.lstm_dwh_grouped(hs, dg),
                 lambda: lstm_ops.lstm_dwh_reference_grouped(hs, dg),
@@ -452,6 +502,27 @@ def train_kernel_phase(dev: torch.device) -> dict:
             })
             log(f"[train-kernels] {name} {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                 f"{lib_label} {library_ms:.4f} ms, bound {bound:.4f} ms ({bound_by})")
+        sweep_ms = _sweep_alone_ms(acts, cs, wh, dhout, 0, 5)
+        records["lstm_scan_bwd_grouped"]["sweep_ms"] = sweep_ms
+        log(f"[train-kernels] K4 {label} by part: pre-pass "
+            f"{records['lstm_gate_acts_grouped']['ms']:.4f} ms + sweep alone {sweep_ms:.4f} ms "
+            f"({sweep_ms / t * 1e3:.3f} us a step) + dWh {records['lstm_dwh_grouped']['ms']:.4f} "
+            f"ms; K4 whole {records['lstm_scan_bwd_grouped']['ms']:.4f} ms")
+
+    t, g, b, h = SWEEP_TILE_SHAPE
+    gates, wh, dhout = _train_kernel_inputs(dev, gen, t, g, b, h)
+    hs, cs = lstm_ops.lstm_scan_fwd_res_grouped(gates, wh)
+    dg, _ = lstm_ops.lstm_scan_bwd_grouped(gates, hs, cs, wh, dhout)
+    acts = lstm_ops.lstm_gate_acts_grouped(gates, hs, wh)
+    for tile in (1, 2, 4):
+        buf = acts.clone()
+        lstm_ops._launch_sweep(buf, cs, wh, dhout, tile)
+        err = float((buf - dg).abs().max())
+        ms = _sweep_alone_ms(acts, cs, wh, dhout, tile, 3)
+        log(f"[train-kernels] K4 sweep alone T={t} G={g} B={b} H={h} batch_tile={tile}: "
+            f"{ms:.4f} ms; max|d| to the wrapper's own tile {err:.3e} (tol {KERNEL_TOL})")
+        if not err <= KERNEL_TOL:
+            raise AssertionError(f"the sweep at batch tile {tile} disagrees with the wrapper's")
     return records
 
 
@@ -472,7 +543,7 @@ def _synthetic_corpus(seed: int):
 def _counters():
     counters = {name: getattr(lstm_ops, name) for name in (
         "lstm_scan_grouped", "lstm_scan", "lstm_scan_fwd_res_grouped",
-        "lstm_scan_bwd_grouped", "lstm_dwh_grouped")}
+        "lstm_scan_bwd_grouped", "lstm_gate_acts_grouped", "lstm_dwh_grouped")}
     counters.update({name: getattr(viterbi_ops, name)
                      for name in ("viterbi_forward_costs", "viterbi_path")})
     return counters
@@ -533,10 +604,10 @@ def training_phase(dev: torch.device) -> dict:
         f"{statistics.median(steady):.3f} ms (min {min(steady):.3f}, max {max(steady):.3f}, "
         f"all {[round(v, 3) for v in step_ms]}); {audio_s / (sum(step_ms) / 1e3):.1f} "
         f"audio-s trained per s of step time; peak memory {peak_gib:.3f} GiB")
-    log(f"[training] main-path launches: {launches}; expected 2 x {n_steps} steps of K3/K4/dWh "
-        f"and 2 x {n_eval} eval batches of K1")
+    log(f"[training] main-path launches: {launches}; expected 2 x {n_steps} steps of "
+        f"K3/K4/pre-pass/dWh and 2 x {n_eval} eval batches of K1")
     if not (launches["lstm_scan_fwd_res_grouped"] == launches["lstm_scan_bwd_grouped"]
-            == launches["lstm_dwh_grouped"] == 2 * n_steps
+            == launches["lstm_gate_acts_grouped"] == launches["lstm_dwh_grouped"] == 2 * n_steps
             and launches["lstm_scan_grouped"] == 2 * n_eval and launches["lstm_scan"] == 0):
         raise AssertionError("the training path did not launch the kernels as expected")
 
@@ -816,6 +887,7 @@ def run(dev: torch.device, smi: str) -> None:
         ("lstm_scan_grouped", SOURCE, f"{PALLAS}:180"), ("lstm_scan", SOURCE, f"{PALLAS}:81"),
         ("lstm_scan_fwd_res_grouped", SOURCE, f"{PALLAS}:342"),
         ("lstm_scan_bwd_grouped", TRAIN_SOURCE, f"{PALLAS}:383"),
+        ("lstm_gate_acts_grouped", TRAIN_SOURCE, f"{PALLAS}:296"),
         ("lstm_dwh_grouped", TRAIN_SOURCE, f"{PALLAS}:319"),
         ("viterbi_forward_costs", VITERBI_SOURCE, f"{PALLAS_VITERBI}:93"),
         ("viterbi_path", VITERBI_SOURCE, f"{PALLAS_VITERBI}:135"),
@@ -831,7 +903,7 @@ def run(dev: torch.device, smi: str) -> None:
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec["library_ms"], "shape": rec["shape"],
             "on_main_path": name != "lstm_scan",
-            **{k: rec[k] for k in ("serving", "praat") if k in rec},
+            **{k: rec[k] for k in ("serving", "praat", "sweep_ms") if k in rec},
         })
     log(f"[card] {smi}")
     print(json.dumps({"kernels": kernels}))

@@ -22,9 +22,12 @@ Training (``csrc/lstm_scan.cu`` with c saved, ``csrc/lstm_train.cu``):
 * :func:`lstm_scan_fwd_res_grouped` (K3): K1's recurrence, also returning
   every c_t: → hs, cs (T, G, B, H).
 * :func:`lstm_scan_bwd_grouped` (K4): the reverse sweep, gates, hs, cs, wh,
-  dhout → dgates (T, G, B, 4H), dwh (G, H, 4H); dwh comes from
-  :func:`lstm_dwh_grouped`, a second hand-written kernel over dgates and the
-  shifted hs.
+  dhout → dgates (T, G, B, 4H), dwh (G, H, 4H), as three hand-written
+  kernels: :func:`lstm_gate_acts_grouped` recomputes the activated gates
+  i, f, g, o of every step at once (a parallel pre-pass, written into the
+  dgates buffer), the sweep walks t = T-1 .. 0 over them and overwrites
+  them with dz, and :func:`lstm_dwh_grouped` reduces dgates and the shifted
+  hs to dwh.
 * :class:`LSTMRecurrenceGrouped` (K5): the ``torch.autograd.Function``
   pairing K3 with K4; :func:`lstm_recurrence_grouped` and, at G = 1,
   :func:`lstm_recurrence` are its functional forms.
@@ -118,6 +121,55 @@ def lstm_scan_bwd_reference_grouped(
     return dgates, lstm_dwh_reference_grouped(hs, dgates)
 
 
+def lstm_gate_acts_reference_grouped(
+    gates: torch.Tensor, hs: torch.Tensor, wh: torch.Tensor
+) -> torch.Tensor:
+    """Plain gate recompute: the activated gates of every step,
+    ``[σ(z_i), σ(z_f), tanh(z_g), σ(z_o)]`` with ``z_t = gates_t + h_{t-1} @ Wh``
+    and h_{-1} = 0. gates (T, G, B, 4H), hs (T, G, B, H), wh (G, H, 4H) →
+    acts (T, G, B, 4H). One product a step, as the plain sweep takes it."""
+    t_len, g, b, four_h = gates.shape
+    h_dim = four_h // 4
+    zeros = gates.new_zeros((g, b, h_dim))
+    acts = torch.empty_like(gates)
+    for t in range(t_len):
+        z = gates[t] + torch.bmm(hs[t - 1] if t > 0 else zeros, wh)
+        acts[t, ..., : 2 * h_dim] = torch.sigmoid(z[..., : 2 * h_dim])
+        acts[t, ..., 2 * h_dim : 3 * h_dim] = torch.tanh(z[..., 2 * h_dim : 3 * h_dim])
+        acts[t, ..., 3 * h_dim :] = torch.sigmoid(z[..., 3 * h_dim :])
+    return acts
+
+
+def lstm_sweep_from_acts_reference_grouped(
+    acts: torch.Tensor, cs: torch.Tensor, wh: torch.Tensor, dhout: torch.Tensor
+) -> torch.Tensor:
+    """Plain reverse sweep over activated gates: the loop of
+    :func:`lstm_scan_bwd_reference_grouped` without its recompute.
+    acts (T, G, B, 4H), cs/dhout (T, G, B, H), wh (G, H, 4H) → dgates."""
+    t_len, g, b, four_h = acts.shape
+    h_dim = four_h // 4
+    zeros = acts.new_zeros((g, b, h_dim))
+    dh, dc = zeros, zeros
+    wh_t = wh.transpose(1, 2)
+    dgates = torch.empty_like(acts)
+    for t in reversed(range(t_len)):
+        i, f, g_, o = acts[t].split(h_dim, dim=-1)
+        cp = cs[t - 1] if t > 0 else zeros
+        tc = torch.tanh(cs[t])
+        dht = dhout[t] + dh
+        dct = dc + dht * o * (1.0 - tc * tc)
+        dz = torch.cat([
+            dct * g_ * i * (1.0 - i),
+            dct * cp * f * (1.0 - f),
+            dct * i * (1.0 - g_ * g_),
+            dht * tc * o * (1.0 - o),
+        ], dim=-1)
+        dgates[t] = dz
+        dh = torch.bmm(dz, wh_t)
+        dc = dct * f
+    return dgates
+
+
 def lstm_scan_reference(gates: torch.Tensor, wh: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch recurrence: (T, B, 4H) + (H, 4H) → (T, B, H)."""
     return lstm_scan_reference_grouped(gates[:, None], wh[None])[:, 0]
@@ -155,14 +207,14 @@ def _check_like(gates: torch.Tensor, **tensors: torch.Tensor) -> None:
             raise ValueError(f"{name} is {x.dtype} on {x.device}, gates {gates.dtype} on {gates.device}")
 
 
-def _pick_batch_tile(g: int, b: int, n_sms: int) -> int:
+def _pick_batch_tile(g: int, b: int, n_sms: int, largest: int = 8) -> int:
     """Batch rows per block: the fewest that keep every block on its own SM.
 
     A step's time is set by the latency of its matvec, not by the rows it
     carries, so more blocks go faster until they outnumber the SMs.
     """
     tile = 1
-    while tile < 8 and g * -(-b // tile) > n_sms:
+    while tile < largest and g * -(-b // tile) > n_sms:
         tile *= 2
     return tile
 
@@ -201,9 +253,9 @@ def _contiguous(**tensors: torch.Tensor) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
-def _tile(g: int, b: int, device: torch.device, batch_tile: int) -> int:
+def _tile(g: int, b: int, device: torch.device, batch_tile: int, largest: int = 8) -> int:
     n_sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return batch_tile or _pick_batch_tile(g, b, n_sms)
+    return batch_tile or _pick_batch_tile(g, b, n_sms, largest)
 
 
 def _launch(gates: torch.Tensor, wh: torch.Tensor, batch_tile: int = 0,
@@ -225,16 +277,17 @@ def _launch(gates: torch.Tensor, wh: torch.Tensor, batch_tile: int = 0,
     return (hs, cs) if save_c else hs
 
 
-def _launch_bwd(gates, hs, cs, wh, dhout, batch_tile: int = 0) -> torch.Tensor:
-    """Launch the reverse sweep on CUDA tensors: dgates (T, G, B, 4H)."""
-    t_len, g, b, h_dim = _kernel_shape(gates)
-    _contiguous(gates=gates, hs=hs, cs=cs, dhout=dhout)
-    dgates = torch.empty_like(gates)
+def _launch_sweep(dgates, cs, wh, dhout, batch_tile: int = 0) -> None:
+    """Launch the reverse sweep on CUDA tensors, in place: ``dgates`` comes
+    in holding the activated gates (T, G, B, 4H) and leaves holding dz. Its
+    batch tile is 1, 2 or 4: the kernel keeps part of Whᵀ in registers, and
+    eight rows' state beside it would spill."""
+    t_len, g, b, h_dim = _kernel_shape(dgates)
+    _contiguous(dgates=dgates, cs=cs, dhout=dhout)
     if dgates.numel():
-        _call("lstm_train", "lstm_bwd_grouped_f32", gates.device,
-              gates, hs, cs, dhout, _pack_wh(wh), _pack_wh_t(wh), dgates,
-              t_len, g, b, h_dim, _tile(g, b, gates.device, batch_tile))
-    return dgates
+        _call("lstm_train", "lstm_bwd_sweep_grouped_f32", dgates.device,
+              dgates, cs, dhout, _pack_wh_t(wh), t_len, g, b, h_dim,
+              _tile(g, b, dgates.device, batch_tile, largest=4))
 
 
 def _unsupported(x: torch.Tensor) -> None:
@@ -297,20 +350,44 @@ def lstm_dwh_grouped(hs: torch.Tensor, dgates: torch.Tensor) -> torch.Tensor:
     return dwh
 
 
+def lstm_gate_acts_grouped(
+    gates: torch.Tensor, hs: torch.Tensor, wh: torch.Tensor
+) -> torch.Tensor:
+    """K4's pre-pass: the activated gates i, f, g, o of every step at once,
+    gates (T, G, B, 4H), hs (T, G, B, H), wh (G, H, 4H) → (T, G, B, 4H).
+    One launch of the tiled fp32 product on CUDA (not a library product)."""
+    _check(gates, wh, 4, cpu_float64=True)
+    _check_like(gates, hs=hs)
+    if gates.device.type == "cpu":
+        return lstm_gate_acts_reference_grouped(gates, hs, wh)
+    _unsupported(gates)
+    t_len, g, b, h_dim = _kernel_shape(gates)
+    _contiguous(gates=gates, hs=hs)
+    acts = torch.empty_like(gates)
+    if acts.numel():
+        _call("lstm_train", "lstm_gate_acts_grouped_f32", gates.device,
+              gates, hs, wh.contiguous(), acts, t_len, g, b, h_dim)
+    lstm_gate_acts_grouped.launches += 1
+    return acts
+
+
 def lstm_scan_bwd_grouped(
     gates: torch.Tensor, hs: torch.Tensor, cs: torch.Tensor, wh: torch.Tensor,
     dhout: torch.Tensor,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K4: the reverse sweep → dgates (T, G, B, 4H), dwh (G, H, 4H).
 
-    On CUDA: one launch of the sweep, then :func:`lstm_dwh_grouped`.
+    On CUDA: :func:`lstm_gate_acts_grouped` fills dgates with the activated
+    gates, one launch of the sweep turns them into dz in place, then
+    :func:`lstm_dwh_grouped`.
     """
     _check(gates, wh, 4, cpu_float64=True)
     _check_like(gates, hs=hs, cs=cs, dhout=dhout)
     if gates.device.type == "cpu":
         return lstm_scan_bwd_reference_grouped(gates, hs, cs, wh, dhout)
     _unsupported(gates)
-    dgates = _launch_bwd(gates, hs, cs, wh, dhout)
+    dgates = lstm_gate_acts_grouped(gates, hs, wh)
+    _launch_sweep(dgates, cs, wh, dhout)
     lstm_scan_bwd_grouped.launches += 1
     return dgates, lstm_dwh_grouped(hs, dgates)
 
@@ -347,5 +424,6 @@ def lstm_recurrence(gates: torch.Tensor, wh: torch.Tensor) -> torch.Tensor:
 lstm_scan_grouped.launches = 0
 lstm_scan.launches = 0
 lstm_scan_fwd_res_grouped.launches = 0
+lstm_gate_acts_grouped.launches = 0
 lstm_scan_bwd_grouped.launches = 0
 lstm_dwh_grouped.launches = 0

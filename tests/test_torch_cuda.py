@@ -68,17 +68,21 @@ def test_cnn_lstm_on_card_matches_cpu(cuda_device):
     torch.testing.assert_close(card, cpu, rtol=0, atol=1e-4)
 
 
-@pytest.mark.parametrize("t,b,h", [(37, 3, 8), (300, 17, 128), (64, 9, 40), (1, 5, 16)])
+@pytest.mark.parametrize("t,b,h", [
+    (37, 3, 8), (300, 17, 128), (64, 9, 40), (1, 5, 16),
+    (33, 5, 24),   # H < 32: the sweep's whole Whᵀ in registers
+    (48, 67, 64),  # H = 64; 2 x 67 rows outnumber the SMs: batch tile 2, ragged last tile
+])
 def test_training_kernels_match_plain_versions(cuda_device, t, b, h):
-    """K3 (hs, cs), K4 (dgates) and the dWh kernel against their plain
-    versions on the card, one launch each."""
+    """K3 (hs, cs), K4 (its gate pre-pass, dgates) and the dWh kernel against
+    their plain versions on the card, one launch each."""
     rng = np.random.default_rng(1)
     gates = torch.from_numpy((rng.normal(size=(t, 2, b, 4 * h)) * 0.5).astype(np.float32))
     wh = torch.from_numpy((rng.normal(size=(2, h, 4 * h)) / h**0.5).astype(np.float32))
     dhout = torch.from_numpy(rng.normal(size=(t, 2, b, h)).astype(np.float32))
     gates, wh, dhout = gates.to(cuda_device), wh.to(cuda_device), dhout.to(cuda_device)
-    counters = (lstm_ops.lstm_scan_fwd_res_grouped, lstm_ops.lstm_scan_bwd_grouped,
-                lstm_ops.lstm_dwh_grouped)
+    counters = (lstm_ops.lstm_scan_fwd_res_grouped, lstm_ops.lstm_gate_acts_grouped,
+                lstm_ops.lstm_scan_bwd_grouped, lstm_ops.lstm_dwh_grouped)
     before = [c.launches for c in counters]
     hs, cs = lstm_ops.lstm_scan_fwd_res_grouped(gates, wh)
     dg, dwh = lstm_ops.lstm_scan_bwd_grouped(gates, hs, cs, wh, dhout)
@@ -90,6 +94,16 @@ def test_training_kernels_match_plain_versions(cuda_device, t, b, h):
     ref_dg, ref_dwh = lstm_ops.lstm_scan_bwd_reference_grouped(gates, hs, cs, wh, dhout)
     torch.testing.assert_close(dg, ref_dg, rtol=0, atol=ATOL)
     torch.testing.assert_close(dwh, ref_dwh, rtol=DWH_TOL, atol=DWH_TOL)
+    acts = lstm_ops.lstm_gate_acts_grouped(gates, hs, wh)
+    assert counters[1].launches == before[1] + 2
+    ref_acts = lstm_ops.lstm_gate_acts_reference_grouped(gates, hs, wh)
+    torch.testing.assert_close(acts, ref_acts, rtol=0, atol=ATOL)
+    # the sweep alone, in place over the plain activations, at every batch tile
+    ref_sweep = lstm_ops.lstm_sweep_from_acts_reference_grouped(ref_acts, cs, wh, dhout)
+    for tile in (1, 2, 4):
+        buf = ref_acts.clone()
+        lstm_ops._launch_sweep(buf, cs, wh, dhout, tile)
+        torch.testing.assert_close(buf, ref_sweep, rtol=0, atol=ATOL)
 
 
 def test_train_step_on_card_matches_cpu(cuda_device):

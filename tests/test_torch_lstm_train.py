@@ -1,5 +1,6 @@
-"""Port's LSTM training functions (plain PyTorch versions of K3, K4, the dWh
-kernel, and K5) vs the JAX package, on the CPU.
+"""Port's LSTM training functions (plain PyTorch versions of K3, K4 with its
+gate pre-pass and its sweep over activated gates, the dWh kernel, and K5) vs
+the JAX package, on the CPU.
 
 The same seeded numpy inputs go through the JAX package's Pallas training
 kernels in interpret mode, ``jax.vjp`` of its scan reference, and the port.
@@ -56,6 +57,72 @@ def test_bwd_matches_pallas_interpret(inputs):
         *_t(gates, np.asarray(hs), np.asarray(cs), wh, dhout))
     np.testing.assert_allclose(dg.numpy(), np.asarray(ref_dg), atol=ATOL)
     np.testing.assert_allclose(dwh.numpy(), np.asarray(ref_dwh), rtol=DWH_TOL, atol=DWH_TOL)
+
+
+def _jax_gate_acts(gates, hs, wh):
+    """i, f, g, o of every step as the TPU backward kernel's step recomputes
+    them: z = gates_t + h_{t-1} @ Wh with h_{-1} = 0, then the activations."""
+    hprev = jnp.concatenate([jnp.zeros_like(hs[:1]), hs[:-1]], axis=0)
+    z = jnp.asarray(gates) + jnp.einsum("tgbk,gkj->tgbj", hprev, jnp.asarray(wh))
+    h_dim = hs.shape[-1]
+    return jnp.concatenate([
+        jax.nn.sigmoid(z[..., : 2 * h_dim]),
+        jnp.tanh(z[..., 2 * h_dim : 3 * h_dim]),
+        jax.nn.sigmoid(z[..., 3 * h_dim :]),
+    ], axis=-1)
+
+
+@pytest.mark.parametrize("t_len", [T, 1], ids=["ragged", "single-step"])
+def test_gate_acts_match_jax_step(inputs, t_len):
+    """The plain pre-pass against the JAX step's activations (1e-6), at every
+    t including t = 0 (no h_{t-1} term), and against the TPU forward kernel's
+    own hs and cs: c_t = f c_{t-1} + i g, h_t = o tanh(c_t)."""
+    gates, wh, _ = inputs
+    gates = gates[:t_len]
+    hs, cs = jax_lstm._lstm_fwd_res_pallas(jnp.asarray(gates), jnp.asarray(wh), 8, True)
+    acts = port_lstm.lstm_gate_acts_reference_grouped(*_t(gates, np.asarray(hs), wh))
+    assert acts.shape == gates.shape and acts.dtype == torch.float32
+    np.testing.assert_allclose(acts.numpy(), np.asarray(_jax_gate_acts(gates, hs, wh)),
+                               rtol=0, atol=1e-6)
+    i, f, g_, o = (a.numpy() for a in acts.split(H, dim=-1))
+    np.testing.assert_allclose(i[0], 1 / (1 + np.exp(-gates[0, ..., :H].astype(np.float64))),
+                               rtol=0, atol=1e-6)
+    cprev = np.concatenate([np.zeros_like(cs[:1]), np.asarray(cs)[:-1]])
+    np.testing.assert_allclose(f * cprev + i * g_, np.asarray(cs), atol=ATOL)
+    np.testing.assert_allclose(o * np.tanh(np.asarray(cs)), np.asarray(hs), atol=ATOL)
+
+
+def test_sweep_from_acts_equals_plain_sweep(inputs):
+    """Pre-pass then sweep is K4's plain version split in two: the same
+    products and activations in the same order, so dgates are equal bit for
+    bit; and they match the TPU backward kernel in interpret mode."""
+    gates, wh, dhout = inputs
+    hs, cs = jax_lstm._lstm_fwd_res_pallas(jnp.asarray(gates), jnp.asarray(wh), 8, True)
+    g_t, h_t, c_t, w_t, d_t = _t(gates, np.asarray(hs), np.asarray(cs), wh, dhout)
+    acts = port_lstm.lstm_gate_acts_reference_grouped(g_t, h_t, w_t)
+    dg = port_lstm.lstm_sweep_from_acts_reference_grouped(acts, c_t, w_t, d_t)
+    ref_dg, _ = port_lstm.lstm_scan_bwd_reference_grouped(g_t, h_t, c_t, w_t, d_t)
+    assert torch.equal(dg, ref_dg)
+    jax_dg, _ = jax_lstm._lstm_bwd_pallas(
+        jnp.asarray(gates), hs, cs, jnp.asarray(wh), jnp.asarray(dhout), 8, True)
+    np.testing.assert_allclose(dg.numpy(), np.asarray(jax_dg), atol=ATOL)
+
+
+def test_sweep_from_acts_single_step():
+    """T = 1: dh = dc = 0 on entry and c_{-1} = 0, so dz is dhout times the
+    o and cell factors, and the forget gate's dz is zero."""
+    rng = np.random.default_rng(7)
+    acts = torch.from_numpy(rng.uniform(0.1, 0.9, size=(1, 2, 3, 32)).astype(np.float32))
+    cs = torch.from_numpy(rng.normal(size=(1, 2, 3, 8)).astype(np.float32))
+    wh = torch.from_numpy((rng.normal(size=(2, 8, 32)) * 0.3).astype(np.float32))
+    dhout = torch.from_numpy(rng.normal(size=(1, 2, 3, 8)).astype(np.float32))
+    dg = port_lstm.lstm_sweep_from_acts_reference_grouped(acts, cs, wh, dhout)
+    i, f, g_, o = acts[0].split(8, dim=-1)
+    tc = torch.tanh(cs[0])
+    dct = dhout[0] * o * (1.0 - tc * tc)
+    ref = torch.cat([dct * g_ * i * (1.0 - i), torch.zeros_like(f),
+                     dct * i * (1.0 - g_ * g_), dhout[0] * tc * o * (1.0 - o)], dim=-1)
+    torch.testing.assert_close(dg[0], ref, rtol=0, atol=1e-7)
 
 
 def test_bwd_matches_jax_vjp_of_scan(inputs):
@@ -158,7 +225,7 @@ def test_single_step_sequence():
     assert dwh.shape == (2, 8, 32) and not dwh.any()
 
 
-@pytest.mark.parametrize("kernel", ["K3", "K4", "dWh"])
+@pytest.mark.parametrize("kernel", ["K3", "K4", "dWh", "acts"])
 def test_wrappers_send_cpu_tensors_to_plain_versions(inputs, kernel):
     gates, wh, dhout = inputs
     g_t, w_t, d_t = _t(gates, wh, dhout)
@@ -169,6 +236,8 @@ def test_wrappers_send_cpu_tensors_to_plain_versions(inputs, kernel):
         "K4": (port_lstm.lstm_scan_bwd_grouped, (g_t, hs, cs, w_t, d_t),
                port_lstm.lstm_scan_bwd_reference_grouped),
         "dWh": (port_lstm.lstm_dwh_grouped, (hs, g_t), port_lstm.lstm_dwh_reference_grouped),
+        "acts": (port_lstm.lstm_gate_acts_grouped, (g_t, hs, w_t),
+                 port_lstm.lstm_gate_acts_reference_grouped),
     }[kernel]
     before = wrapper.launches
     out, ref = wrapper(*args), plain(*args)
@@ -190,6 +259,18 @@ def test_training_wrappers_reject_bad_inputs(inputs):
         port_lstm.lstm_scan_fwd_res_grouped(g_t.half(), w_t.half())
     with pytest.raises(ValueError):
         port_lstm.lstm_scan_fwd_res_grouped(g_t, w_t[:, :, :-4])
+    with pytest.raises(ValueError, match="hs"):
+        port_lstm.lstm_gate_acts_grouped(g_t, hs[:-1], w_t)
+    with pytest.raises(ValueError, match="hs"):
+        port_lstm.lstm_gate_acts_grouped(g_t, hs.double(), w_t)
+    with pytest.raises(ValueError, match="hs"):
+        port_lstm.lstm_gate_acts_grouped(g_t, hs.to("meta"), w_t)
+    with pytest.raises(TypeError):
+        port_lstm.lstm_gate_acts_grouped(g_t.half(), hs.half(), w_t.half())
+    with pytest.raises(ValueError):
+        port_lstm.lstm_gate_acts_grouped(g_t, hs, w_t[:, :, :-4])
+    with pytest.raises(ValueError):
+        port_lstm.lstm_gate_acts_grouped(g_t[:, 0], hs[:, 0], w_t[0])
 
 
 def test_wh_transpose_packing():
