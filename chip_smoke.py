@@ -12,15 +12,19 @@ without them. Phases, each of which raises on failure:
    compiled with nvcc (ptxas report printed);
 3. kernels: K1 (lstm_scan_grouped) and K2 (lstm_scan) against their plain
    PyTorch versions on the card at a ragged shape, the flagship batch shape
-   and the serving shape, with their times beside the plain version's, the
-   cuDNN ``nn.LSTM`` yardstick and the card's bound; then the training
+   and the serving shape, with their times (and microseconds a step of the
+   time loop) beside the plain version's, the cuDNN ``nn.LSTM`` yardstick
+   and the card's bound, and K1 at each batch tile its kernel has (bit-equal
+   to one another); then the training
    kernels K3 (lstm_scan_fwd_res_grouped: hs, cs), K4
    (lstm_scan_bwd_grouped: dgates, dWh), its gate pre-pass
    (lstm_gate_acts_grouped) and the dWh kernel (lstm_dwh_grouped) the same
    way at a ragged shape and the training shape (T=4096, G=2, B=8, H=128),
    with cuDNN's biLSTM forward (K3) and backward (K4), ``torch.baddbmm``
    with the activations (pre-pass) and ``torch.einsum`` (dWh) as
-   yardsticks; K4's sweep alone, and at batch tiles 1/2/4 at B=64;
+   yardsticks; K1's hs bit-equal to K3's; how far the pre-pass's gates lie
+   from the ones K3 used (printed); K4's sweep alone, and at batch tiles
+   1/2/4 at B=64;
 4. flagship forward: CNNLSTM(768, 128, 128), batch 128 × 4480 × 768,
    lengths 4378; two kernel launches per forward; logits of two rows agree
    with the same model on the CPU; median time and a profiler breakdown;
@@ -67,6 +71,7 @@ import collections
 import copy
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -119,6 +124,8 @@ SEQ_LEN, PAD_LEN, DIM, BATCH = 4378, 4480, 768, 128
 TRAIN_SHAPE = (4096, 2, 8, 128)  # T, G, B, H: a 4378-frame batch after the max-pool
 N_SEQS, MIN_FRAMES = 40, 1000
 TRAIN_EPOCHS = 3
+
+SCAN_TILES = (1, 2)  # the forward scan's batch tiles, timed at the flagship shape
 
 SOURCE = "robust_speech_analysis_framework_tpu_torch/csrc/lstm_scan.cu"
 TRAIN_SOURCE = "robust_speech_analysis_framework_tpu_torch/csrc/lstm_train.cu"
@@ -240,7 +247,8 @@ def kernel_phase(dev: torch.device) -> dict:
             bound_ms, bound_by = lstm_bound_ms(t, g, b, h)
             timing = {"shape": f"T={t} G={g} B={b} H={h}", "ms": ms, "plain_ms": plain_ms,
                       "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
-            log(f"[kernels] {name} {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            log(f"[kernels] {name} {label}: kernel {ms:.4f} ms ({ms / t * 1e3:.3f} us a step), "
+                f"plain {plain_ms:.4f} ms, "
                 f"cuDNN nn.LSTM({h}, {h}, bidirectional={bidir}) one layer incl. its input "
                 f"projection {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
             if label == "flagship":
@@ -248,9 +256,15 @@ def kernel_phase(dev: torch.device) -> dict:
             else:
                 rec["serving"] = timing
         if label == "flagship":
-            for tile in (1, 2, 4, 8):
+            ref = lstm_ops.lstm_scan_grouped(gates, wh)
+            for tile in SCAN_TILES:
+                out = lstm_ops._launch(gates, wh, tile)
+                err = float((out - ref).abs().max())
                 ms = cuda_ms(lambda: lstm_ops._launch(gates, wh, tile), 3)
-                log(f"[kernels] lstm_scan_grouped flagship batch_tile={tile}: {ms:.4f} ms")
+                log(f"[kernels] lstm_scan_grouped flagship batch_tile={tile}: {ms:.4f} ms "
+                    f"({ms / t * 1e3:.3f} us a step); max|d| to the wrapper's own tile {err:.3e}")
+                if err != 0.0:
+                    raise AssertionError(f"the scan at batch tile {tile} differs from the wrapper's")
     return records
 
 
@@ -448,6 +462,18 @@ def train_kernel_phase(dev: torch.device) -> dict:
             raise AssertionError(f"a training kernel disagrees with its plain version at {label}")
         for name, err in errs.items():
             records[name]["max_abs_err"] = max(records[name]["max_abs_err"], err)
+        # K1 and K3 are one kernel template: the same hs, bit for bit
+        if not torch.equal(lstm_ops.lstm_scan_grouped(gates, wh), hs):
+            raise AssertionError(f"K1's hs and K3's hs differ at {label}")
+        # K4's pre-pass recomputes z in its own order of additions: how far its
+        # gates lie from the ones K3 used, seen through K3's own c_t and h_t
+        i_, f_, g_, o_ = acts.split(h, dim=-1)
+        c_prev = torch.cat([torch.zeros_like(cs[:1]), cs[:-1]])
+        dc = float((f_ * c_prev + i_ * g_ - cs).abs().max())
+        dh = float((o_ * torch.tanh(cs) - hs).abs().max())
+        log(f"[train-kernels] {label}: K1 hs = K3 hs bit for bit; K4's pre-pass against K3: "
+            f"max|f*c_(t-1) + i*g - c_t|={dc:.3e}, max|o*tanh(c_t) - h_t|={dh:.3e} (printed, "
+            f"no tolerance: the sweep does not need them equal)")
         if label == "ragged":
             continue
 
@@ -500,8 +526,10 @@ def train_kernel_phase(dev: torch.device) -> dict:
                 "shape": f"T={t} G={g} B={b} H={h}", "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound, "bound_by": bound_by, "library_ms": library_ms,
             })
-            log(f"[train-kernels] {name} {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                f"{lib_label} {library_ms:.4f} ms, bound {bound:.4f} ms ({bound_by})")
+            per_step = f" ({ms / t * 1e3:.3f} us a step)" if name == "lstm_scan_fwd_res_grouped" else ""
+            log(f"[train-kernels] {name} {label}: kernel {ms:.4f} ms{per_step}, plain "
+                f"{plain_ms:.4f} ms, {lib_label} {library_ms:.4f} ms, bound {bound:.4f} ms "
+                f"({bound_by})")
         sweep_ms = _sweep_alone_ms(acts, cs, wh, dhout, 0, 5)
         records["lstm_scan_bwd_grouped"]["sweep_ms"] = sweep_ms
         log(f"[train-kernels] K4 {label} by part: pre-pass "
@@ -856,6 +884,25 @@ def opensmile_phase(dev: torch.device) -> dict:
     return launches
 
 
+def ptxas_report(text: str) -> list:
+    """One line per kernel of ptxas's verbose output: its name with the
+    integer template arguments, its registers and its spill bytes."""
+    lines, name, spill = [], "?", ""
+    for line in text.splitlines():
+        line = line.strip()
+        if "Function properties for" in line:
+            found = re.search(r"\d([a-z_]+_kernel)(?:I((?:L[ib]\d+E)+)E)?", line)
+            name = line.rsplit(" ", 1)[-1]
+            if found:
+                args = re.findall(r"L[ib](\d+)E", found.group(2) or "")
+                name = found.group(1) + (f"<{', '.join(args)}>" if args else "")
+        elif "spill" in line:
+            spill = line
+        elif "registers" in line:
+            lines.append(f"{name}: {line.replace('ptxas info    : ', '')}; {spill}")
+    return lines
+
+
 def run(dev: torch.device, smi: str) -> None:
     """Every phase on ``dev``; prints the kernels' record and the result line."""
     log(f"[card] {smi}")
@@ -868,9 +915,8 @@ def run(dev: torch.device, smi: str) -> None:
     _build.build_all()
     log(f"[build] nvcc for {_build.sources()}: {time.perf_counter() - t0:.2f} s")
     for name, text in _build.build_logs.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {name}: {line.strip()}")
+        for line in ptxas_report(text):
+            log(f"[build] {name}: {line}")
 
     records = kernel_phase(dev)
     records.update(train_kernel_phase(dev))

@@ -207,11 +207,21 @@ def _check_like(gates: torch.Tensor, **tensors: torch.Tensor) -> None:
             raise ValueError(f"{name} is {x.dtype} on {x.device}, gates {gates.dtype} on {gates.device}")
 
 
-def _pick_batch_tile(g: int, b: int, n_sms: int, largest: int = 8) -> int:
+# Largest batch tile of the forward scan and of the reverse sweep: beside the
+# part of Wh (Whᵀ) a thread keeps in registers, more rows' state would spill,
+# and a spilling tile ran slower than two passes of the next smaller one.
+SCAN_LARGEST_TILE = 2
+SWEEP_LARGEST_TILE = 4
+
+
+def _pick_batch_tile(g: int, b: int, n_sms: int, largest: int) -> int:
     """Batch rows per block: the fewest that keep every block on its own SM.
 
-    A step's time is set by the latency of its matvec, not by the rows it
-    carries, so more blocks go faster until they outnumber the SMs.
+    A block holds its direction's Wh in registers and most of an SM's shared
+    memory, so an SM runs one block at a time; every row a block carries
+    beside the first lengthens its step, so more blocks go faster until they
+    outnumber the SMs. Past ``largest`` rows a block the grid runs in more
+    than one wave.
     """
     tile = 1
     while tile < largest and g * -(-b // tile) > n_sms:
@@ -220,14 +230,19 @@ def _pick_batch_tile(g: int, b: int, n_sms: int, largest: int = 8) -> int:
 
 
 def _pack_wh(wh: torch.Tensor) -> torch.Tensor:
-    """(G, H, 4H) → (G, H/4, 4H, 4): thread p of a block reads column
-    ``(p % 4) * H + p // 4`` as one float4 per four rows of Wh."""
+    """(G, H, 4H) → (G, 8·NK, 4H, 4) with NK = ⌈H / 32⌉, the layout the
+    forward kernel reads. Thread p of a block is lane ``l = p % 8`` of the
+    group ``j = p // 8`` that owns units 2j and 2j+1; it sums rows
+    ``l·4NK .. (l+1)·4NK`` of Wh (zero rows past H) against the group's eight
+    columns, column m being gate ``m % 4`` of unit ``2j + m // 4``:
+
+        packed[g, 8·k4 + m, p, r] = wh[g, l·4NK + 4·k4 + r, (m % 4)·H + 2j + m // 4].
+    """
     g, h_dim, four_h = wh.shape
-    p = torch.arange(four_h, device=wh.device)
-    cols = (p % 4) * h_dim + p // 4
-    return (
-        wh[:, :, cols].reshape(g, h_dim // 4, 4, four_h).transpose(2, 3).contiguous()
-    )
+    nk = -(-h_dim // 32)
+    w = torch.nn.functional.pad(wh, (0, 0, 0, 32 * nk - h_dim))
+    w = w.reshape(g, 8, nk, 4, 4, h_dim // 2, 2)  # [g, l, k4, r, gate, j, unit of the pair]
+    return w.permute(0, 2, 6, 4, 5, 1, 3).reshape(g, 8 * nk, four_h, 4).contiguous()
 
 
 def _pack_wh_t(wh: torch.Tensor) -> torch.Tensor:
@@ -253,7 +268,7 @@ def _contiguous(**tensors: torch.Tensor) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
-def _tile(g: int, b: int, device: torch.device, batch_tile: int, largest: int = 8) -> int:
+def _tile(g: int, b: int, device: torch.device, batch_tile: int, largest: int) -> int:
     n_sms = torch.cuda.get_device_properties(device).multi_processor_count
     return batch_tile or _pick_batch_tile(g, b, n_sms, largest)
 
@@ -261,13 +276,14 @@ def _tile(g: int, b: int, device: torch.device, batch_tile: int, largest: int = 
 def _launch(gates: torch.Tensor, wh: torch.Tensor, batch_tile: int = 0,
             save_c: bool = False):
     """Launch the forward kernel on (T, G, B, 4H) + (G, H, 4H) CUDA tensors:
-    hs, or (hs, cs) with ``save_c``."""
+    hs, or (hs, cs) with ``save_c``. Its batch tile is 1 or 2 (0: chosen from
+    the shape); neither the tile nor ``save_c`` changes a row's arithmetic."""
     t_len, g, b, h_dim = _kernel_shape(gates)
     _contiguous(gates=gates)
     hs = torch.empty((t_len, g, b, h_dim), device=gates.device, dtype=torch.float32)
     cs = torch.empty_like(hs) if save_c else None
     if hs.numel():
-        tile = _tile(g, b, gates.device, batch_tile)
+        tile = _tile(g, b, gates.device, batch_tile, SCAN_LARGEST_TILE)
         if save_c:
             _call("lstm_scan", "lstm_scan_fwd_res_grouped_f32", gates.device,
                   gates, _pack_wh(wh), hs, cs, t_len, g, b, h_dim, tile)
@@ -287,7 +303,7 @@ def _launch_sweep(dgates, cs, wh, dhout, batch_tile: int = 0) -> None:
     if dgates.numel():
         _call("lstm_train", "lstm_bwd_sweep_grouped_f32", dgates.device,
               dgates, cs, dhout, _pack_wh_t(wh), t_len, g, b, h_dim,
-              _tile(g, b, dgates.device, batch_tile, largest=4))
+              _tile(g, b, dgates.device, batch_tile, SWEEP_LARGEST_TILE))
 
 
 def _unsupported(x: torch.Tensor) -> None:

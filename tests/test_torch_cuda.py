@@ -30,7 +30,14 @@ def cuda_device():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("t,b,h", [(37, 3, 8), (300, 17, 128)])
+SCAN_TILES = (1, 2)  # the forward scan's batch tiles
+
+
+@pytest.mark.parametrize("t,b,h", [
+    (37, 3, 8), (300, 17, 128), (64, 9, 40), (1, 5, 16),
+    (33, 5, 24),   # H % 32 != 0: the kernel runs at the next multiple of 32, zero-padded
+    (48, 67, 64),  # H = 64; 2 x 67 rows outnumber the SMs: batch tile 2, ragged last tile
+])
 def test_kernel_matches_plain_version(cuda_device, t, b, h):
     rng = np.random.default_rng(0)
     gates = torch.from_numpy((rng.normal(size=(t, 2, b, 4 * h)) * 0.5).astype(np.float32))
@@ -42,9 +49,16 @@ def test_kernel_matches_plain_version(cuda_device, t, b, h):
     torch.cuda.synchronize()
     assert (lstm_ops.lstm_scan_grouped.launches, lstm_ops.lstm_scan.launches) == (
         before[0] + 1, before[1] + 1)
-    ref = lstm_ops.lstm_scan_reference_grouped(gates, wh)
+    ref, ref_cs = lstm_ops.lstm_scan_fwd_res_reference_grouped(gates, wh)
     torch.testing.assert_close(out, ref, rtol=0, atol=ATOL)
     torch.testing.assert_close(out1, ref[:, 0], rtol=0, atol=ATOL)
+    # every batch tile the kernel keeps, with and without the saved c
+    for tile in SCAN_TILES:
+        torch.testing.assert_close(lstm_ops._launch(gates, wh, tile), ref, rtol=0, atol=ATOL)
+        hs, cs = lstm_ops._launch(gates, wh, tile, save_c=True)
+        torch.testing.assert_close(hs, ref, rtol=0, atol=ATOL)
+        torch.testing.assert_close(cs, ref_cs, rtol=0, atol=ATOL)
+        assert torch.equal(hs, out)  # neither the tile nor save_c changes a row's arithmetic
 
 
 def test_kernel_rejects_unsupported_hidden_size(cuda_device):
