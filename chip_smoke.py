@@ -24,7 +24,9 @@ without them. Phases, each of which raises on failure:
    with the activations (pre-pass) and ``torch.einsum`` (dWh) as
    yardsticks; K1's hs bit-equal to K3's; how far the pre-pass's gates lie
    from the ones K3 used (printed); K4's sweep alone, and at batch tiles
-   1/2/4 at B=64;
+   1/2/4 at B=64; the dWh kernel alone at ragged shapes (T=1: all zeros;
+   T=2; B=1 and 3; H=24, 40, 64; rows that do not fill the last slice) with
+   its row split printed and two calls bit-equal;
 4. flagship forward: CNNLSTM(768, 128, 128), batch 128 × 4480 × 768,
    lengths 4378; two kernel launches per forward; logits of two rows agree
    with the same model on the CPU; median time and a profiler breakdown;
@@ -48,10 +50,11 @@ without them. Phases, each of which raises on failure:
    weights: loss, gradients, updated parameters and BatchNorm statistics;
 8. viterbi-kernels: K6 (viterbi_forward_costs) and K7 (viterbi_path)
    against their plain versions on the card, bit for bit (max |Δc| = 0,
-   identical paths), at a ragged shape (B=3, T=37, C=7, both weight
-   schemes), the openSMILE shape (B=4, T=6485, C=7: a 60 s file's bucket)
-   and the Praat shape of the next slice (B=8, T=5997, C=15), with times
-   beside the plain version's and the card's bound;
+   identical paths), at ragged shapes (B=3, T=37, C=7, both weight
+   schemes; C=32; C=1), the openSMILE shape (B=4, T=6485, C=7: a 60 s
+   file's bucket) and the Praat shape of the next slice (B=8, T=5997,
+   C=15), with times (and microseconds a step) beside the plain version's
+   and the card's bound;
 9. opensmile (the third main path): a seeded corpus of 16 speech-like
    16 kHz files of 20–60 s (three length buckets) through
    OpenSmileExtractor.extract_arrays on the card, counters reset just
@@ -140,6 +143,8 @@ PRAAT_W = (0.35, 0.0, 0.14)
 VITERBI_SHAPES = {  # B, T, C, weights
     "ragged-opensmile": (3, 37, 7, OPENSMILE_W),
     "ragged-praat": (3, 37, 7, PRAAT_W),
+    "ragged-c32": (1, 300, 32, PRAAT_W),  # every lane a state, 19 chunks of 16 frames
+    "ragged-c1": (2, 129, 1, OPENSMILE_W),  # one state; 128 steps: two whole chunks
     # one 60 s file's bucket: bucket_size(960000, 8000) = 1037971 samples
     "opensmile": (4, 6485, 7, OPENSMILE_W),
     # 60 s at Praat's 10 ms step with its 40 ms window: 5997 frames
@@ -422,6 +427,39 @@ def _sweep_alone_ms(acts, cs, wh, dhout, tile: int, reps: int) -> float:
     return both - copy_ms
 
 
+# T, G, B, H of the dWh kernel's ragged cases: no rows; one step; rows that
+# end inside a chunk; H below, between and at the tile's k halves; B = 1; a
+# last slice that ends short (5083 rows in 16 slices of 320)
+DWH_RAGGED_SHAPES = ((1, 2, 3, 16), (2, 2, 3, 8), (64, 1, 9, 40), (33, 2, 5, 24),
+                     (48, 2, 67, 64), (1000, 3, 1, 64), (300, 2, 17, 128))
+
+
+def dwh_ragged_checks(dev: torch.device, gen: torch.Generator) -> float:
+    """The dWh kernel alone against its plain version at the ragged shapes;
+    returns the largest error."""
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    worst = 0.0
+    for t, g, b, h in DWH_RAGGED_SHAPES:
+        hs = torch.rand(t, g, b, h, device=dev, generator=gen) * 2 - 1
+        dg = torch.randn(t, g, b, 4 * h, device=dev, generator=gen)
+        dwh = lstm_ops.lstm_dwh_grouped(hs, dg)
+        again = lstm_ops.lstm_dwh_grouped(hs, dg)
+        torch.cuda.synchronize()
+        ref = lstm_ops.lstm_dwh_reference_grouped(hs, dg)
+        scale = float(ref.abs().max()) if ref.numel() else 0.0
+        err = float((dwh - ref).abs().max())
+        slices, rows = lstm_ops._dwh_split((t - 1) * b, g, h, n_sms)
+        log(f"[train-kernels] dWh ragged T={t} G={g} B={b} H={h}: {(t - 1) * b} rows in "
+            f"{slices} slices of {rows}; max|d|={err:.3e} of max|dWh| {scale:.3e} "
+            f"(tol {DWH_TOL} x max(1, max|dWh|)); two calls bit-equal: "
+            f"{torch.equal(dwh, again)}")
+        if not (err <= DWH_TOL * max(1.0, scale) and torch.equal(dwh, again)
+                and (t > 1 or not dwh.any())):
+            raise AssertionError(f"the dWh kernel fails at T={t} G={g} B={b} H={h}")
+        worst = max(worst, err)
+    return worst
+
+
 def train_kernel_phase(dev: torch.device) -> dict:
     """K3, K4, its gate pre-pass and the dWh kernel against their plain
     versions; times at the training shape beside cuDNN's biLSTM forward and
@@ -536,6 +574,15 @@ def train_kernel_phase(dev: torch.device) -> dict:
             f"{records['lstm_gate_acts_grouped']['ms']:.4f} ms + sweep alone {sweep_ms:.4f} ms "
             f"({sweep_ms / t * 1e3:.3f} us a step) + dWh {records['lstm_dwh_grouped']['ms']:.4f} "
             f"ms; K4 whole {records['lstm_scan_bwd_grouped']['ms']:.4f} ms")
+
+    rec = records["lstm_dwh_grouped"]
+    rec["max_abs_err"] = max(rec["max_abs_err"], dwh_ragged_checks(dev, gen))
+    t, g, b, h = TRAIN_SHAPE
+    rec["split"] = lstm_ops._dwh_split(
+        (t - 1) * b, g, h, torch.cuda.get_device_properties(dev).multi_processor_count)
+    log(f"[train-kernels] dWh training: {(t - 1) * b} rows in {rec['split'][0]} slices of "
+        f"{rec['split'][1]}; {2 * (t - 1) * b * g * h * 4 * h / rec['ms'] / 1e9:.1f} "
+        f"TFLOP/s fp32 of {PEAK_FP32_FLOPS / 1e12:.0f}")
 
     t, g, b, h = SWEEP_TILE_SHAPE
     gates, wh, dhout = _train_kernel_inputs(dev, gen, t, g, b, h)
@@ -662,7 +709,7 @@ def profile_train_step(trainer, state, seqs, labels, cfg) -> None:
 
     step()
     torch.cuda.synchronize()
-    profile_device(f"one train step at {tuple(batch.shape)}", step, 12)
+    profile_device(f"one train step at {tuple(batch.shape)}", step, 16)
 
 
 ZERO_GRAD = ("res_block1.conv1.bias", "res_block1.conv2.bias", "res_block1.shortcut.0.bias",
@@ -763,7 +810,8 @@ def viterbi_kernel_phase(dev: torch.device) -> dict:
             bound, bound_by = viterbi_bound_ms(b, t, c, is_path)
             timing = {"shape": f"B={b} T={t} C={c}", "ms": ms, "plain_ms": plain_ms,
                       "bound_ms": bound, "bound_by": bound_by, "library_ms": None}
-            log(f"[viterbi-kernels] {name} {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            log(f"[viterbi-kernels] {name} {label}: kernel {ms:.4f} ms "
+                f"({ms / t * 1e3:.4f} us a step), plain {plain_ms:.4f} ms, "
                 f"bound {bound:.6f} ms ({bound_by}); no single PyTorch call computes a "
                 f"min-plus Viterbi")
             if label == "opensmile":
@@ -949,7 +997,7 @@ def run(dev: torch.device, smi: str) -> None:
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec["library_ms"], "shape": rec["shape"],
             "on_main_path": name != "lstm_scan",
-            **{k: rec[k] for k in ("serving", "praat", "sweep_ms") if k in rec},
+            **{k: rec[k] for k in ("serving", "praat", "sweep_ms", "split") if k in rec},
         })
     log(f"[card] {smi}")
     print(json.dumps({"kernels": kernels}))

@@ -27,7 +27,7 @@ Training (``csrc/lstm_scan.cu`` with c saved, ``csrc/lstm_train.cu``):
   i, f, g, o of every step at once (a parallel pre-pass, written into the
   dgates buffer), the sweep walks t = T-1 .. 0 over them and overwrites
   them with dz, and :func:`lstm_dwh_grouped` reduces dgates and the shifted
-  hs to dwh.
+  hs to dwh (the rows split into slices, the slices' sums added in order).
 * :class:`LSTMRecurrenceGrouped` (K5): the ``torch.autograd.Function``
   pairing K3 with K4; :func:`lstm_recurrence_grouped` and, at G = 1,
   :func:`lstm_recurrence` are its functional forms.
@@ -346,10 +346,36 @@ def lstm_scan_fwd_res_grouped(
     return out
 
 
+# csrc/lstm_train.cu's kDwhRows and kDwhCols: rows the dWh kernel stages at a
+# time, and columns of dWh[g] a block owns
+DWH_CHUNK = 32
+DWH_COLS = 128
+
+
+def _dwh_split(n_rows: int, g: int, h_dim: int, n_sms: int = 132) -> Tuple[int, int]:
+    """How the dWh kernel cuts the ``n_rows = (T-1)·B`` rows of a direction:
+    (slices, rows a slice). Slice ``s`` sums rows ``s·rows .. min(n_rows,
+    (s+1)·rows)``; each of the ``⌈4H/128⌉·G`` output tiles gets one block a
+    slice, so the slices are as many as keep all blocks within one wave of
+    the SMs, never more than there are chunks of rows, and a slice is whole
+    chunks (only the last one may end short). No rows: one empty slice, whose
+    blocks write zeros."""
+    if n_rows <= 0:
+        return 1, 0
+    tiles = -(-4 * h_dim // DWH_COLS) * g
+    chunks = -(-n_rows // DWH_CHUNK)
+    slices = max(1, min(n_sms // tiles, chunks))
+    rows = -(-chunks // slices) * DWH_CHUNK
+    return -(-n_rows // rows), rows
+
+
 def lstm_dwh_grouped(hs: torch.Tensor, dgates: torch.Tensor) -> torch.Tensor:
     """dWh (G, H, 4H) = Σ over t ≥ 1 and b of hs[t-1]ᵀ dgates[t]; hs
-    (T, G, B, H), dgates (T, G, B, 4H). One launch of the tiled fp32
-    reduction on CUDA (not a library product)."""
+    (T, G, B, H), dgates (T, G, B, 4H). On CUDA the hand-written split
+    product (not a library product): one launch that sums each slice of the
+    rows (:func:`_dwh_split`) into its own partial dWh, and, with more than
+    one slice, one that adds the partial sums in slice order, so the result
+    is the same bits on every call."""
     _check_like(dgates, hs=hs)
     if dgates.device.type == "cpu":
         return lstm_dwh_reference_grouped(hs, dgates)
@@ -360,8 +386,12 @@ def lstm_dwh_grouped(hs: torch.Tensor, dgates: torch.Tensor) -> torch.Tensor:
     _contiguous(hs=hs, dgates=dgates)
     dwh = torch.empty((g, h_dim, 4 * h_dim), device=dgates.device, dtype=torch.float32)
     if dwh.numel():
+        n_sms = torch.cuda.get_device_properties(dgates.device).multi_processor_count
+        slices, rows = _dwh_split((t_len - 1) * b, g, h_dim, n_sms)
+        partial = dwh if slices == 1 else torch.empty(
+            (slices, *dwh.shape), device=dgates.device, dtype=torch.float32)
         _call("lstm_train", "lstm_dwh_grouped_f32", dgates.device,
-              hs, dgates, dwh, t_len, g, b, h_dim)
+              hs, dgates, partial, dwh, t_len, g, b, h_dim, slices, rows)
     lstm_dwh_grouped.launches += 1
     return dwh
 

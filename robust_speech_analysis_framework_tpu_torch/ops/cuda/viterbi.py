@@ -14,7 +14,9 @@ the state is voiced) and local (cost), each (B, T, C) float32:
                   w_diff                        voicing changes
 
 * :func:`viterbi_forward_costs` (K6): → c (B, T, C), one launch of
-  ``csrc/viterbi.cu``'s cost kernel on CUDA.
+  ``csrc/viterbi.cu``'s cost kernel on CUDA: one block a file and direction,
+  whose producer warps lay the transition costs out in shared memory ahead
+  of the one warp that walks the T dependent steps.
 * :func:`viterbi_path` (K7): the same recurrence on the time-flipped
   inputs gives e, and the state per frame is argmin_j c + (flip(e) − local),
   (B, T) int64. On CUDA: one launch of the cost kernel for both directions
@@ -33,7 +35,7 @@ import torch
 
 from ._build import call as _call
 
-MAX_STATES = 32  # one warp lane per state
+MAX_STATES = 32  # one lane of the chain's warp per state
 
 
 def _transitions(lf, v, w_vv, w_same, w_diff) -> torch.Tensor:

@@ -86,6 +86,9 @@ def test_cnn_lstm_on_card_matches_cpu(cuda_device):
     (37, 3, 8), (300, 17, 128), (64, 9, 40), (1, 5, 16),
     (33, 5, 24),   # H < 32: the sweep's whole Whᵀ in registers
     (48, 67, 64),  # H = 64; 2 x 67 rows outnumber the SMs: batch tile 2, ragged last tile
+    (2, 3, 8),     # dWh: one step's rows, a single short chunk
+    (700, 1, 64),  # dWh: B = 1, 699 rows in slices whose last ends short
+    (130, 3, 128), # dWh: 387 rows, fewer chunks than a wave has room for slices
 ])
 def test_training_kernels_match_plain_versions(cuda_device, t, b, h):
     """K3 (hs, cs), K4 (its gate pre-pass, dgates) and the dWh kernel against
@@ -108,6 +111,11 @@ def test_training_kernels_match_plain_versions(cuda_device, t, b, h):
     ref_dg, ref_dwh = lstm_ops.lstm_scan_bwd_reference_grouped(gates, hs, cs, wh, dhout)
     torch.testing.assert_close(dg, ref_dg, rtol=0, atol=ATOL)
     torch.testing.assert_close(dwh, ref_dwh, rtol=DWH_TOL, atol=DWH_TOL)
+    # the slices' sums are added in a fixed order: a second call gives the same bits
+    assert torch.equal(lstm_ops.lstm_dwh_grouped(hs, dg), dwh)
+    assert counters[3].launches == before[3] + 2
+    if t == 1:
+        assert not dwh.any()
     acts = lstm_ops.lstm_gate_acts_grouped(gates, hs, wh)
     assert counters[1].launches == before[1] + 2
     ref_acts = lstm_ops.lstm_gate_acts_reference_grouped(gates, hs, wh)
@@ -148,7 +156,8 @@ VITERBI_SCHEMES = {"opensmile": (10.0, 0.0, 10.0), "praat": (0.175, 0.0, 0.07)}
 
 
 @pytest.mark.parametrize("scheme", sorted(VITERBI_SCHEMES))
-@pytest.mark.parametrize("b,t,c", [(3, 37, 7), (4, 2000, 7), (2, 500, 15), (5, 1, 3)])
+@pytest.mark.parametrize("b,t,c", [(3, 37, 7), (4, 2000, 7), (2, 500, 15), (5, 1, 3),
+                                   (1, 300, 32), (2, 129, 1)])
 def test_viterbi_kernels_equal_plain_versions(cuda_device, b, t, c, scheme):
     """K6 forward costs and the K7 path bit-equal to their plain versions on
     the card; one K6 launch for K6, one K6 (both directions) and one K7

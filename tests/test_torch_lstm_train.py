@@ -151,6 +151,60 @@ def test_dwh_is_the_shifted_product(inputs):
     torch.testing.assert_close(port_lstm.lstm_dwh_grouped(hs, dg), dwh, rtol=0, atol=0)
 
 
+DWH_SPLIT_CASES = [  # n_rows = (T-1)·B, G, H
+    (0, 2, 128), (1, 2, 8), (3, 2, 8), (31, 1, 64), (32, 1, 64), (33, 1, 64), (97, 3, 24),
+    (567, 1, 40), (997, 2, 64), (3149, 2, 64), (5083, 2, 128), (32749, 2, 128),
+    (32760, 2, 128), (32760, 2, 64), (65472, 2, 128), (4095, 140, 128),
+]
+
+
+@pytest.mark.parametrize("n_rows,g,h", DWH_SPLIT_CASES)
+def test_dwh_split_plan(n_rows, g, h):
+    """The slices cover every row exactly once, are whole chunks but for the
+    last, are never more than the chunks, and their blocks fit one wave of
+    the SMs where one slice's blocks do."""
+    slices, rows = port_lstm._dwh_split(n_rows, g, h, 132)
+    covered = np.zeros(n_rows, np.int64)
+    for s in range(slices):
+        covered[s * rows : min(n_rows, (s + 1) * rows)] += 1
+    assert (covered == 1).all()
+    assert slices >= 1 and rows % port_lstm.DWH_CHUNK == 0
+    assert slices <= max(1, -(-n_rows // port_lstm.DWH_CHUNK))
+    assert n_rows == 0 or (slices - 1) * rows < n_rows  # no empty slice
+    tiles = -(-4 * h // port_lstm.DWH_COLS) * g
+    assert slices == 1 or slices * tiles <= 132
+    if (n_rows, g, h) == (32760, 2, 128):  # the training shape: 128 blocks
+        assert (slices, rows) == (16, 2048)
+
+
+@pytest.mark.parametrize("t_len,g,b,h", [
+    (1, 2, 3, 16), (2, 2, 3, 8), (37, 2, 3, 8), (64, 1, 9, 40), (33, 2, 5, 24),
+    (48, 2, 67, 64), (300, 3, 1, 64), (120, 2, 17, 128),
+])
+def test_dwh_split_emulated(t_len, g, b, h):
+    """Plain partial sums per slice of the rows, added in slice order as the
+    kernel's second pass adds them, equal the plain dWh to 1e-5 of its scale
+    (and are all zeros at T = 1)."""
+    rng = np.random.default_rng(t_len * b + h)
+    hs = torch.from_numpy(rng.uniform(-1, 1, size=(t_len, g, b, h)).astype(np.float32))
+    dg = torch.from_numpy(rng.normal(size=(t_len, g, b, 4 * h)).astype(np.float32))
+    n_rows = (t_len - 1) * b
+    slices, rows = port_lstm._dwh_split(n_rows, g, h, 132)
+    # row n = (t - 1)·B + b pairs hs[t-1, :, b] with dgates[t, :, b]
+    a = hs[:-1].permute(1, 0, 2, 3).reshape(g, n_rows, h)
+    d = dg[1:].permute(1, 0, 2, 3).reshape(g, n_rows, 4 * h)
+    dwh = torch.zeros(g, h, 4 * h)
+    for s in range(slices):
+        lo, hi = s * rows, min(n_rows, (s + 1) * rows)
+        part = torch.bmm(a[:, lo:hi].transpose(1, 2), d[:, lo:hi])
+        dwh = part if s == 0 else dwh + part
+    ref = port_lstm.lstm_dwh_reference_grouped(hs, dg)
+    scale = max(1.0, float(ref.abs().max())) if n_rows else 1.0
+    assert float((dwh - ref).abs().max()) <= 1e-5 * scale
+    if t_len == 1:
+        assert not dwh.any() and slices == 1
+
+
 def test_autograd_function_matches_autograd_of_plain_forward(inputs):
     gates, wh, dhout = inputs
     g1, w1 = (x.clone().requires_grad_() for x in _t(gates, wh))

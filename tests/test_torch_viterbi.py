@@ -115,6 +115,63 @@ def test_forward_costs_first_frame_and_recurrence():
                 assert c[b, t, j] == np.float32(min(cand) + local[b, t, j])
 
 
+def _chain_from_rows(trans, local, first, frames, c_states):
+    """The kernel's chain, in plain torch, over rows as its producers lay
+    them out: the states padded to CP = 8, 16 or 32 with trans = +inf and
+    local = 0, a row per state j of the step's frame holding trans from
+    every state i of the frame before and then local[j], consumed in chunks
+    of 64, 32 or 16 steps with the state handed from slot to slot.
+    trans (B, S, C, C) from i (axis -2) to j, local (B, S, C), first (B, C)
+    → costs after each of the S steps, (B, S, C)."""
+    cp = 8 if c_states <= 8 else 16 if c_states <= 16 else 32
+    assert frames == {8: 64, 16: 32, 32: 16}[cp]
+    b, steps = local.shape[:2]
+    inf = torch.tensor(float("inf"))
+    rows = torch.full((b, steps, cp, cp + 4), 0.0)
+    rows[..., :cp] = inf
+    rows[:, :, :c_states, :c_states] = trans.transpose(-1, -2)  # [j][i]
+    rows[:, :, :c_states, cp] = local
+    c = torch.full((b, cp), float("inf"))
+    c[:, :c_states] = first
+    out = torch.empty(b, steps, c_states)
+    for s0 in range(0, steps, frames):
+        slots = [c]
+        for f in range(min(frames, steps - s0)):
+            row = rows[:, s0 + f]
+            cand = slots[-1][:, None, :] + row[:, :, :cp]  # [j][i]: c[i] + trans[i][j]
+            slots.append(cand.amin(dim=-1) + row[:, :, cp])
+        out[:, s0 : s0 + len(slots) - 1] = torch.stack(slots[1:], dim=1)[..., :c_states]
+        c = slots[-1]
+    return out
+
+
+@pytest.mark.parametrize("scheme", sorted(SCHEMES))
+@pytest.mark.parametrize("c_states,t_len", [(1, 129), (7, 200), (15, 70), (32, 37)])
+def test_viterbi_from_transitions(c_states, t_len, scheme):
+    """A chain that takes the precomputed transitions chunk by chunk, padded
+    and laid out as the kernel reads them, equals the plain forward costs
+    bit for bit: forward, and in reverse, where step s goes from frame
+    T-s to frame T-1-s with the same table read from the other side and
+    its cost lands at frame T-1-s (flip(e))."""
+    lf, v, local = _torch(*_case(20 + c_states, 2, t_len, c_states, scheme))
+    w = SCHEMES[scheme]
+    frames = 64 if c_states <= 8 else 32 if c_states <= 16 else 16
+    trans = port_viterbi._transitions(lf, v, *w)
+    fwd = _chain_from_rows(trans, local[:, 1:], local[:, 0], frames, c_states)
+    ref = port_viterbi.viterbi_forward_costs_reference(lf, v, local, *w)
+    assert torch.equal(torch.cat([local[:, :1], fwd], dim=1), ref)
+    # reverse: from state i of frame t+1 to state j of frame t is the forward
+    # table's [t][j][i], since |a - b| and the voicing rule are symmetric
+    back = trans.flip(1).transpose(-1, -2)
+    assert torch.equal(back, port_viterbi._transitions(lf.flip(1), v.flip(1), *w))
+    rev = _chain_from_rows(back, local.flip(1)[:, 1:], local[:, -1], frames, c_states)
+    e = port_viterbi.viterbi_forward_costs_reference(lf.flip(1), v.flip(1), local.flip(1), *w)
+    flipped = torch.cat([local[:, -1:], rev], dim=1).flip(1)  # cost of step s at frame T-1-s
+    assert torch.equal(flipped, e.flip(1))
+    path = port_viterbi._path_from_costs(ref, flipped, local)
+    assert torch.equal(path, port_viterbi.viterbi_path_reference(lf, v, local, *w))
+
+
 @pytest.mark.parametrize("kernel", ["K6", "K7"])
 def test_wrappers_send_cpu_tensors_to_plain_version(kernel):
     lf, v, local = _torch(*_case(2, 2, 20, 7, "opensmile"))
