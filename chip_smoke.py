@@ -14,12 +14,14 @@ without them. Phases, each of which raises on failure:
    PyTorch versions on the card at a ragged shape, the flagship batch shape
    and the serving shape, with their times (and microseconds a step of the
    time loop) beside the plain version's, the cuDNN ``nn.LSTM`` yardstick
-   and the card's bound, and K1 at each batch tile its kernel has (bit-equal
-   to one another); then the training
+   and the card's bound, K1 at each batch tile its kernel has (bit-equal
+   to one another), and both at a trial's width in the CV search (H=64,
+   B=4); then the training
    kernels K3 (lstm_scan_fwd_res_grouped: hs, cs), K4
    (lstm_scan_bwd_grouped: dgates, dWh), its gate pre-pass
    (lstm_gate_acts_grouped) and the dWh kernel (lstm_dwh_grouped) the same
-   way at a ragged shape and the training shape (T=4096, G=2, B=8, H=128),
+   way at a ragged shape, a CV trial's shape (T=2240, G=2, B=4, H=64) and
+   the training shape (T=4096, G=2, B=8, H=128),
    with cuDNN's biLSTM forward (K3) and backward (K4), ``torch.baddbmm``
    with the activations (pre-pass) and ``torch.einsum`` (dWh) as
    yardsticks; K1's hs bit-equal to K3's; how far the pre-pass's gates lie
@@ -40,7 +42,8 @@ without them. Phases, each of which raises on failure:
    over a seeded synthetic corpus of 40 Wav2Vec2-width sequences (1000 to
    4378 frames), the inner 80/20 split, ``train_model`` of the flagship
    CNNLSTM(768, 128, 128) (batch 8, Adam 1e-3, dropout 0.5, plateau decay,
-   early stop, best-weight restore) for 3 epochs, then ``evaluate_model``
+   early stop, best-weight restore) on the streaming path
+   (``device_fold="off"``) for 3 epochs, then ``evaluate_model``
    and the fold's metrics; counters reset just before and read just after
    (two launches each of K3, K4, its pre-pass and dWh per train step, two
    K1 per eval batch); loss per epoch, step time, audio-seconds trained per second,
@@ -62,7 +65,20 @@ without them. Phases, each of which raises on failure:
    first-pass and steady wall time (median of 3), audio-s/s, the host
    period march's time and share, peak memory, a profile of one sub-batch;
    16 × 912 finite values; two short files card vs CPU within the
-   tolerance families of the JAX package's batched-vs-serial test.
+   tolerance families of the JAX package's batched-vs-serial test;
+10. cv (the training half of the main path, whole): the corpus of phase 6
+    uploaded once as a ResidentCorpus, then over that one tensor the
+    standard engine (``standard_kfold_cv``: 2 folds, 2 epochs, the flagship
+    hyperparameters) and the nested engine (``nested_cv``: 2 outer folds, 3
+    TPE trials of 2 inner folds and 2 epochs at batch 4 over the default
+    search space, 2 final epochs); counters reset just before each engine
+    and read just after (two launches each of K3, K4, its pre-pass and dWh
+    per train step, two K1 per eval batch, no K2); no upload through
+    ``Trainer._tensor`` larger than a label vector or a batch plan; finite
+    results of the right shapes; upload time, the resident fold's train
+    step beside the streaming fold's, wall per fold and per trial, peak
+    memory; and one fold of one-bucket sequences through the resident and
+    the streaming path, whose first-epoch losses agree to 1e-5.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.
@@ -85,6 +101,7 @@ import numpy as np
 import torch
 
 from robust_speech_analysis_framework_tpu_torch.audio.io import write_wav
+from robust_speech_analysis_framework_tpu_torch.eval import dl_cv
 from robust_speech_analysis_framework_tpu_torch.eval.metrics import classification_metrics
 from robust_speech_analysis_framework_tpu_torch.eval.splits import (
     StratifiedKFold,
@@ -127,6 +144,14 @@ SEQ_LEN, PAD_LEN, DIM, BATCH = 4378, 4480, 768, 128
 TRAIN_SHAPE = (4096, 2, 8, 128)  # T, G, B, H: a 4378-frame batch after the max-pool
 N_SEQS, MIN_FRAMES = 40, 1000
 TRAIN_EPOCHS = 3
+CV_TRIAL_SHAPE = (PAD_LEN // 2, 2, 4, 64)  # T, G, B, H: an inner-fold batch of a narrow trial
+CV_TOL = 1e-5  # first-epoch losses, resident fold vs streaming fold on the card
+FLAGSHIP_HP = {"learning_rate": 1e-3, "dropout_rate": 0.5, "cnn_out_channels": 128,
+               "lstm_hidden_dim": 128, "activation_fn": "silu"}
+CV_STANDARD = dict(n_splits=2, epochs=2, patience=25, batch_size=8, seed=42)
+CV_NESTED = dict(n_splits_outer=2, n_splits_inner=2, n_trials=3, epochs=2, patience=10,
+                 batch_size=8, inner_epochs=2, inner_batch_size=4, seed=42)
+CV_BUCKET = 4096  # the one bucket of the resident-vs-streaming fold
 
 SCAN_TILES = (1, 2)  # the forward scan's batch tiles, timed at the flagship shape
 
@@ -218,7 +243,8 @@ def dwh_bound_ms(t: int, g: int, b: int, h: int) -> tuple:
 def kernel_phase(dev: torch.device) -> dict:
     """K1/K2 against their plain versions; times at the batch and serving shapes."""
     gen = torch.Generator(device=dev).manual_seed(0)
-    shapes = {"ragged": (37, 3, 8), "flagship": (2240, 128, 128), "serving": (4096, 1, 128)}
+    shapes = {"ragged": (37, 3, 8), "cv-trial": (CV_TRIAL_SHAPE[0], *CV_TRIAL_SHAPE[2:]), "flagship": (2240, 128, 128),
+              "serving": (4096, 1, 128)}
     records = {"lstm_scan_grouped": {"max_abs_err": 0.0}, "lstm_scan": {"max_abs_err": 0.0}}
     for label, (t, b, h) in shapes.items():
         gates = torch.randn(t, 2, b, 4 * h, device=dev, generator=gen) * 0.5
@@ -240,7 +266,7 @@ def kernel_phase(dev: torch.device) -> dict:
                 raise AssertionError(f"{name} disagrees with its plain version at {label}")
             rec = records[name]
             rec["max_abs_err"] = max(rec["max_abs_err"], err)
-            if label == "ragged":
+            if label in ("ragged", "cv-trial"):
                 continue
             reps = 5
             ms = cuda_ms(lambda: kernel(*args), reps)
@@ -468,7 +494,8 @@ def train_kernel_phase(dev: torch.device) -> dict:
     records = {name: {"max_abs_err": 0.0} for name in
                ("lstm_scan_fwd_res_grouped", "lstm_scan_bwd_grouped", "lstm_gate_acts_grouped",
                 "lstm_dwh_grouped")}
-    for label, (t, g, b, h) in {"ragged": (37, 2, 3, 8), "training": TRAIN_SHAPE}.items():
+    for label, (t, g, b, h) in {"ragged": (37, 2, 3, 8), "cv-trial": CV_TRIAL_SHAPE,
+                                "training": TRAIN_SHAPE}.items():
         gates, wh, dhout = _train_kernel_inputs(dev, gen, t, g, b, h)
         hs, cs = lstm_ops.lstm_scan_fwd_res_grouped(gates, wh)
         dg, dwh = lstm_ops.lstm_scan_bwd_grouped(gates, hs, cs, wh, dhout)
@@ -512,7 +539,7 @@ def train_kernel_phase(dev: torch.device) -> dict:
         log(f"[train-kernels] {label}: K1 hs = K3 hs bit for bit; K4's pre-pass against K3: "
             f"max|f*c_(t-1) + i*g - c_t|={dc:.3e}, max|o*tanh(c_t) - h_t|={dh:.3e} (printed, "
             f"no tolerance: the sweep does not need them equal)")
-        if label == "ragged":
+        if label != "training":
             continue
 
         reps = 3
@@ -624,8 +651,10 @@ def _counters():
     return counters
 
 
-def training_phase(dev: torch.device) -> dict:
-    """The second main path: one CV fold of flagship training and its eval."""
+def training_phase(dev: torch.device) -> tuple:
+    """The second main path: one CV fold of flagship training on the
+    streaming path and its eval; returns the launches and the median train
+    step in ms."""
     t0 = time.perf_counter()
     seqs, y = _synthetic_corpus(0)
     log(f"[training] corpus: {N_SEQS} x (T, {DIM}), T in [{min(map(len, seqs))}, "
@@ -635,7 +664,7 @@ def training_phase(dev: torch.device) -> dict:
     tr, val = train_idx[tr], train_idx[val]
     pick = lambda idx: [seqs[i] for i in idx]  # noqa: E731
     cfg = loops.TrainConfig(learning_rate=1e-3, epochs=TRAIN_EPOCHS, batch_size=8, seed=42,
-                            dropout_rate=0.5)
+                            dropout_rate=0.5, device_fold="off")
     trainer = loops.Trainer(CNNLSTM(DIM, 2, 128, 128, dropout_rate=0.5), device=dev)
 
     # harness-side timing of each step (synchronised) around the trainer's own
@@ -694,7 +723,236 @@ def training_phase(dev: torch.device) -> dict:
             and y_prob.shape == (len(test_idx),) and weights.shape == (DIM,)):
         raise AssertionError("training produced non-finite or misshapen results")
     profile_train_step(trainer, state, pick(tr[:cfg.batch_size]), y[tr[:cfg.batch_size]], cfg)
-    return launches
+    return launches, statistics.median(steady)
+
+
+class _CvProbe:
+    """Harness-side instrumentation of every Trainer the CV engines build:
+    each train step timed (synchronised) with its batch shape, eval batches
+    counted, and the size of every host array that goes to the device
+    through ``Trainer._tensor`` recorded."""
+
+    def __init__(self):
+        self.steps = []  # (ms, batch shape) per train step
+        self.eval_batches = 0
+        self.uploads = []  # bytes per host array uploaded
+        self._real = {name: getattr(loops.Trainer, name)
+                      for name in ("train_step", "eval_step", "_tensor")}
+
+    def __enter__(self):
+        probe, real = self, self._real
+
+        def train_step(self, state, batch, *args, **kwargs):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            loss = real["train_step"](self, state, batch, *args, **kwargs)
+            torch.cuda.synchronize()
+            probe.steps.append(((time.perf_counter() - start) * 1e3, tuple(batch.shape)))
+            return loss
+
+        def eval_step(self, *args, **kwargs):
+            probe.eval_batches += 1
+            return real["eval_step"](self, *args, **kwargs)
+
+        def _tensor(self, a, dtype):
+            if not isinstance(a, torch.Tensor):
+                probe.uploads.append(np.asarray(a).nbytes)
+            return real["_tensor"](self, a, dtype)
+
+        for name, fn in (("train_step", train_step), ("eval_step", eval_step),
+                         ("_tensor", _tensor)):
+            setattr(loops.Trainer, name, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._real.items():
+            setattr(loops.Trainer, name, fn)
+
+    def reset(self):
+        self.steps, self.eval_batches, self.uploads = [], 0, []
+
+
+def _check_cv_launches(label: str, launches: dict, probe: _CvProbe) -> None:
+    n_steps, n_eval = len(probe.steps), probe.eval_batches
+    log(f"[cv] {label} launches: {launches}; {n_steps} train steps, {n_eval} eval batches")
+    if not (n_steps > 0 and n_eval > 0
+            and launches["lstm_scan_fwd_res_grouped"] == launches["lstm_scan_bwd_grouped"]
+            == launches["lstm_gate_acts_grouped"] == launches["lstm_dwh_grouped"] == 2 * n_steps
+            and launches["lstm_scan_grouped"] == 2 * n_eval and launches["lstm_scan"] == 0
+            and launches["viterbi_forward_costs"] == launches["viterbi_path"] == 0):
+        raise AssertionError(f"the {label} CV engine did not launch the kernels as expected")
+
+
+def cv_phase(dev: torch.device, streaming_step_ms: float) -> dict:
+    """The training half of the main path, whole: both CV engines over one
+    resident corpus at the flagship's input width."""
+    seqs, y = _synthetic_corpus(0)
+    named = {f"p{i:02d}": s for i, s in enumerate(seqs)}
+    counters = _counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    resident = loops.ResidentCorpus(named, device=dev)
+    torch.cuda.synchronize()
+    upload_ms = (time.perf_counter() - t0) * 1e3
+    corpus = resident.device_corpus()
+    X = loops.DeviceCorpus.from_resident(resident).view(np.arange(len(seqs)))
+    t_pad = corpus.x.shape[1]
+    log(f"[cv] resident corpus {tuple(corpus.x.shape)} {corpus.x.dtype}, "
+        f"{corpus.x.numel() * corpus.x.element_size() / 1e9:.3f} GB, padded and uploaded "
+        f"once in {upload_ms:.1f} ms")
+
+    total = {name: 0 for name in counters}
+    with _CvProbe() as probe:
+        # --- the standard engine
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        results, preds, hists, weights = dl_cv.standard_kfold_cv(
+            X, y, FLAGSHIP_HP, device=dev, **CV_STANDARD)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in counters.items()}
+        _check_cv_launches("standard", launches, probe)
+        # the counts from the splits themselves: 2 epochs, no early stop
+        want_steps = want_eval = 0
+        folds = StratifiedKFold(CV_STANDARD["n_splits"], shuffle=True, random_state=42)
+        for train_idx, test_idx in folds.split(seqs, y):
+            tr, val = train_test_indices(y[train_idx], n_splits=5, seed=42)
+            bs, epochs = CV_STANDARD["batch_size"], CV_STANDARD["epochs"]
+            want_steps += epochs * -(-len(tr) // bs)
+            want_eval += epochs * -(-len(val) // bs) + -(-len(test_idx) // bs)
+        if (len(probe.steps), probe.eval_batches) != (want_steps, want_eval):
+            raise AssertionError(f"standard engine: {len(probe.steps)} steps and "
+                                 f"{probe.eval_batches} eval batches, expected {want_steps} "
+                                 f"and {want_eval}")
+        for name in total:
+            total[name] += launches[name]
+        n_folds = CV_STANDARD["n_splits"]
+        step_ms = [ms for ms, _ in probe.steps]
+        shapes = sorted({shape for _, shape in probe.steps})
+        log(f"[cv] standard engine: {n_folds} folds x {CV_STANDARD['epochs']} epochs in "
+            f"{wall:.3f} s ({wall / n_folds:.3f} s a fold); batches {shapes}")
+        log(f"[cv] resident train step: first {step_ms[0]:.3f} ms, then median "
+            f"{statistics.median(step_ms[1:]):.3f} ms (min {min(step_ms[1:]):.3f}, max "
+            f"{max(step_ms[1:]):.3f}, all {[round(v, 3) for v in step_ms]}) at {t_pad} frames "
+            f"a row; the streaming fold's median was {streaming_step_ms:.3f} ms at each "
+            f"batch's own bucket")
+        for r, h in zip(results, hists):
+            log(f"[cv] standard fold {r['fold']}: {json.dumps(r)}; train {h['train']} "
+                f"val {h['val']}")
+        ok = (len(results) == len(preds) == len(hists) == n_folds
+              and weights.shape == (n_folds, DIM) and np.isfinite(weights).all()
+              and all(np.isfinite(h["train"] + h["val"]).all() for h in hists)
+              and all(np.isfinite(p["y_prob"]).all() and p["y_prob"].shape == p["y_true"].shape
+                      for p in preds)
+              and sum(len(p["y_true"]) for p in preds) == len(seqs))
+        if not ok:
+            raise AssertionError("the standard engine's results are non-finite or misshapen")
+        uploads = list(probe.uploads)
+
+        # --- the nested engine
+        probe.reset()
+        trial_s = []
+        real_score = dl_cv._inner_cv_score
+
+        def timed_score(*args, **kwargs):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            score = real_score(*args, **kwargs)
+            torch.cuda.synchronize()
+            trial_s.append(time.perf_counter() - start)
+            return score
+
+        dl_cv._inner_cv_score = timed_score
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        try:
+            results, preds, weights = dl_cv.nested_cv(X, y, device=dev, **CV_NESTED)
+        finally:
+            dl_cv._inner_cv_score = real_score
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in counters.items()}
+        _check_cv_launches("nested", launches, probe)
+        for name in total:
+            total[name] += launches[name]
+        n_outer = CV_NESTED["n_splits_outer"]
+        widths = sorted({(r["best_params"]["cnn_out_channels"],
+                          r["best_params"]["lstm_hidden_dim"]) for r in results})
+        log(f"[cv] nested engine: {n_outer} outer folds x {CV_NESTED['n_trials']} trials x "
+            f"{CV_NESTED['n_splits_inner']} inner folds in {wall:.3f} s "
+            f"({wall / n_outer:.3f} s an outer fold); a trial "
+            f"{[round(v, 3) for v in trial_s]} s; batches "
+            f"{sorted({shape for _, shape in probe.steps})}; best widths {widths}")
+        for r in results:
+            log(f"[cv] nested fold {r['fold']}: {json.dumps(r)}")
+        ok = (len(results) == len(preds) == n_outer and len(trial_s) == n_outer * CV_NESTED["n_trials"]
+              and weights.shape == (n_outer, DIM) and np.isfinite(weights).all()
+              and all(set(r["best_params"]) == set(dl_cv.DEFAULT_SEARCH_SPACE) for r in results)
+              and all(np.isfinite(p["y_prob"]).all() for p in preds)
+              and sum(len(p["y_true"]) for p in preds) == len(seqs))
+        if not ok:
+            raise AssertionError("the nested engine's results are non-finite or misshapen")
+        uploads += probe.uploads
+
+    # nothing larger than a label vector or a batch plan went to the device
+    limit = 8 * len(seqs) * max(CV_STANDARD["epochs"], CV_NESTED["epochs"],
+                                CV_NESTED["inner_epochs"])
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    log(f"[cv] host-to-device uploads during the folds: {len(uploads)} arrays, largest "
+        f"{max(uploads)} B (limit {limit} B: int64 labels or plan of {len(seqs)} rows); "
+        f"peak memory {peak_gib:.3f} GiB, corpus included")
+    if max(uploads) > limit:
+        raise AssertionError("a CV fold uploaded more than its labels and batch plan")
+    log(f"[cv] main-path launches: {total}")
+
+    profile_resident_step(dev, corpus, y)
+    resident_vs_streaming(dev)
+    return total
+
+
+def profile_resident_step(dev: torch.device, corpus, y: np.ndarray) -> None:
+    """Device time by kernel over one flagship train step whose batch is
+    gathered from the resident corpus, after one warm-up step."""
+    trainer = loops.Trainer(CNNLSTM(DIM, 2, 128, 128, dropout_rate=0.5), device=dev)
+    state = trainer.init_state(0, 1e-3)
+    rows = torch.arange(CV_STANDARD["batch_size"], device=dev)
+    labels = trainer._tensor(y[: len(rows)], torch.int64)
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def step():
+        trainer.train_step(state, corpus.x[rows], corpus.lengths[rows], labels, gen, True, 0.5)
+
+    step()
+    torch.cuda.synchronize()
+    profile_device(f"one resident train step at {(len(rows), *corpus.x.shape[1:])}", step, 16)
+
+
+def resident_vs_streaming(dev: torch.device) -> None:
+    """One fold whose sequences share one bucket, through the resident and
+    the streaming path from the same seed: the gathered batches are the
+    padded batches, so the first epoch's losses agree."""
+    rng = np.random.default_rng(5)
+    lengths = rng.integers(CV_BUCKET // 2 + 1, CV_BUCKET + 1, size=12)
+    seqs = [rng.standard_normal((n, DIM), dtype=np.float32) for n in lengths]
+    labels = np.arange(12) % 2
+    corpus = loops.DeviceCorpus(seqs, align=CV_BUCKET, device=dev)
+    views = (corpus.view(np.arange(8)), labels[:8], corpus.view(np.arange(8, 12)), labels[8:])
+    lists = (seqs[:8], labels[:8], seqs[8:], labels[8:])
+    hist = {}
+    for fold, args in (("on", views), ("off", lists)):
+        trainer = loops.Trainer(CNNLSTM(DIM, 2, 128, 128, dropout_rate=0.5), device=dev)
+        cfg = loops.TrainConfig(learning_rate=1e-3, epochs=1, batch_size=4, seed=7,
+                                dropout_rate=0.5, device_fold=fold)
+        _, train_hist, val_hist = loops.train_model(trainer, *args, cfg)
+        hist[fold] = (train_hist[0], val_hist[0])
+    err = max(abs(a - b) for a, b in zip(hist["on"], hist["off"]))
+    log(f"[cv] one-bucket fold ({CV_BUCKET} frames, dropout 0.5): first-epoch train/val loss "
+        f"resident {hist['on']} vs streaming {hist['off']}: max|d|={err:.3e} (tol {CV_TOL})")
+    if not err <= CV_TOL:
+        raise AssertionError("the resident fold disagrees with the streaming fold")
 
 
 def profile_train_step(trainer, state, seqs, labels, cfg) -> None:
@@ -972,7 +1230,8 @@ def run(dev: torch.device, smi: str) -> None:
     flagship_phase(dev)
     with tempfile.TemporaryDirectory() as tmp:
         serving = serving_phase(dev, tmp)
-    training = training_phase(dev)
+    training, streaming_step_ms = training_phase(dev)
+    cv = cv_phase(dev, streaming_step_ms)
     parity_phase(dev)
     opensmile = opensmile_phase(dev)
 
@@ -987,7 +1246,7 @@ def run(dev: torch.device, smi: str) -> None:
         ("viterbi_path", VITERBI_SOURCE, f"{PALLAS_VITERBI}:135"),
     ):
         rec = records[name]
-        by_path = {"serving": serving[name], "training": training[name],
+        by_path = {"serving": serving[name], "training": training[name], "cv": cv[name],
                    "opensmile": opensmile[name]}
         kernels.append({
             "name": name, "route": "cuda", "source": source,

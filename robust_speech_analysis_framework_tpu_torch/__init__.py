@@ -7,18 +7,20 @@ package. Every kernel the JAX package wrote in Pallas for the TPU becomes a
 hand-written CUDA kernel under ``csrc/``, built with nvcc at first use; what
 XLA computed becomes plain PyTorch.
 
-Ported so far: the serving path, CNN-LSTM training and openSMILE-912
-extraction:
+Ported so far: the serving path, CNN-LSTM training and its cross-validation
+engines, and openSMILE-912 extraction:
 
   audio/      WAV IO, polyphase resampling (numpy), the STFT/mel/MFCC front end
   data/       bucketed batching (numpy)
-  ops/        spectral LLDs, functionals, SHS pitch, the host period march
+  ops/        spectral LLDs, functionals, SHS pitch, the host period march,
+              deferred results (framing.py)
   ops/cuda/   the LSTM kernels (csrc/lstm_scan.cu, csrc/lstm_train.cu) and the
               Viterbi path finder (csrc/viterbi.cu), each with its plain version
   models/     CNN-LSTM, Wav2Vec2-base, weight carry from the JAX package
   features/   Wav2Vec2 sequences, openSMILE-912 features, the conf parser
-  train/      the fold trainer and checkpoints
-  eval/       splits and metrics
+  train/      the fold trainer (streaming and device-resident) and checkpoints
+  eval/       splits, metrics and the CNN-LSTM cross-validation engines
+  tune/       the TPE sampler
   serving.py  Predictor: waveform / files / sequence → classification
 
 Entry points run on the card (``device="cuda"``) unless the caller passes

@@ -1,1 +1,1 @@
-"""Evaluation: stratified splits and classification metrics (numpy)."""
+"""Evaluation: stratified splits, classification metrics (numpy) and the CNN-LSTM CV engines."""

@@ -1,1 +1,1 @@
-"""Training of the CNN-LSTM: the streaming fold trainer and checkpoints."""
+"""Training of the CNN-LSTM: the fold trainer (streaming and device-resident) and checkpoints."""

@@ -1,13 +1,31 @@
-"""Training and evaluation of the CNN-LSTM (PyTorch): the streaming fold trainer.
+"""Training and evaluation of the CNN-LSTM (PyTorch): the fold trainer.
 
-Counterpart of ``robust_speech_analysis_framework_tpu/train/loops.py``'s
-streaming path, the fold trainer the CV engines call: epochs of Adam and
-cross-entropy over shuffled bucket-padded batches, a validation loss per
-epoch, ``ReduceLROnPlateau(factor=0.1, patience=5)``, early stopping with
+Counterpart of ``robust_speech_analysis_framework_tpu/train/loops.py``, the
+fold trainer the CV engines call: epochs of Adam and cross-entropy over
+shuffled batches, a validation loss per epoch,
+``ReduceLROnPlateau(factor=0.1, patience=5)``, early stopping with
 best-weight restore, and an eval pass returning (labels, predictions,
 P(class 1)). On the card every train step runs the biLSTM through K5 (the
 K3 forward and the K4 reverse sweep, one launch each per layer) and every
 eval batch through K1.
+
+A fold takes its batches one of two ways (``TrainConfig.device_fold``):
+
+* **streaming**: each batch is padded on the host to its own bucketed
+  length (``pad_batch``) and uploaded;
+* **device-resident**: the fold's sequences lie on the trainer's device as
+  one padded tensor, either a :class:`DeviceCorpus` uploaded once per CV run
+  and shared by every fold and trial through :class:`SeqView` index views,
+  or the fold's own train and val sets padded once to ONE bucketed length;
+  the epochs' batch plan (:func:`_epoch_batch_plan`, the streaming path's
+  shuffles) is uploaded once per fold and every batch is a gather on the
+  device (``x[idx]``, ``lengths[idx]``, ``y[idx]``). No batch crosses the
+  bus. Every batch is computed at the one global padded length, as in the
+  JAX package, so train-mode BatchNorm (whose statistics include padded
+  frames) sees that length and not the batch's own bucket: the two paths
+  agree bit for bit where all sequences share one bucket and the global
+  length equals it, and differ slightly in the BatchNorm statistics
+  otherwise, in both packages alike.
 
 Where it differs from the JAX package, by design:
 
@@ -21,12 +39,22 @@ Where it differs from the JAX package, by design:
   both would move their sum twice as far as JAX moves its bias.
   :meth:`Trainer.init_state` folds ``bias_hh`` into ``bias_ih`` and keeps it
   at zero, out of the optimizer.
-* The device-resident fold (``device_fold``: the JAX package's
-  ``DeviceCorpus``/``ResidentCorpus``/``SeqView`` and whole-fold program)
-  is not ported yet (ROADMAP queue 1 item 4): ``"auto"`` and ``"off"`` take
-  the streaming path, ``"on"`` raises ``NotImplementedError``.
-* ``parallel_warmup`` has nothing to warm up: PyTorch compiles nothing per
-  batch shape, and the CUDA kernels are built once, at first use.
+* The JAX resident fold is one compiled ``lax.while_loop`` program a fold,
+  so that a host far from its chip dispatches once. PyTorch compiles
+  nothing and the host sits beside the card: both paths here share ONE host
+  epoch loop (:func:`_run_epochs`) and differ only in where a batch comes
+  from. One fetch an epoch (the losses) stays on both. So
+  ``train/aot_cache.py``, ``_warmup_step_shapes`` and ``parallel_warmup``
+  have nothing to do here: no program is compiled per shape, and the CUDA
+  kernels are built once, at first use.
+* The JAX resident fold restores only the parameters and BatchNorm
+  statistics of the best epoch, its streaming path the whole best state;
+  here both restore model, optimizer and rate (:func:`_restore`). A restored
+  model's outputs are the same either way.
+* ``DeviceCorpus`` and ``ResidentCorpus`` take the ``device`` they upload to
+  (``"cuda"`` unless the caller asks for the CPU) and no ``sharding``: that
+  comes with the multi-device slice. Lane-batched trials
+  (``train_trials_device``) are not ported yet.
 """
 
 from __future__ import annotations
@@ -34,16 +62,19 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
-from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
+import os
+from typing import (Any, Callable, Dict, Iterable, Iterator, List, Mapping, Optional,
+                    Sequence, Tuple)
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..data.batching import batch_iterator, length_sorted_batches, pad_batch
+from ..data.batching import batch_iterator, bucket_length, length_sorted_batches, pad_batch
 from ..device import DeviceLike, resolve_device
 from ..models.cnn_lstm import CNNLSTM, BatchNorm
 from ..models.init import init_training_weights_
+from ..ops.framing import Deferred
 
 
 @dataclasses.dataclass
@@ -75,7 +106,13 @@ class TrainConfig:
     remat: bool = False
     # kept for the JAX package's signature: nothing to warm up here
     parallel_warmup: bool = True
-    # "auto" and "off": the streaming path; "on": not ported yet (raises)
+    # Device-resident fold: batches are gathered on the device from one
+    # padded tensor instead of being padded on the host and uploaded. "auto"
+    # takes it when train and val are views of one DeviceCorpus or when the
+    # padded train+val arrays fit the budget below; "on"/"off" force it.
+    # Every batch is then computed at the fold's one global padded length, so
+    # train-mode BatchNorm statistics differ slightly from the streaming
+    # path's per-batch buckets unless all sequences share one bucket.
     device_fold: str = "auto"
     device_fold_budget_bytes: int = 4 << 30
 
@@ -156,17 +193,23 @@ class Trainer:
         optimizer = torch.optim.Adam(fold_lstm_biases_(model), lr=lr, eps=self.adam_eps)
         return TrainState(model=model, optimizer=optimizer, lr=lr)
 
-    def _tensor(self, a: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
+    def _tensor(self, a, dtype: torch.dtype) -> torch.Tensor:
+        """``a`` on the trainer's device as ``dtype``: a host array is
+        uploaded; a tensor already there (a batch gathered from a resident
+        corpus) is taken as it is."""
+        if isinstance(a, torch.Tensor):
+            return a.to(self.device, dtype)
         return torch.as_tensor(np.asarray(a), dtype=dtype).to(self.device)
 
     # --- steps -------------------------------------------------------------
 
-    def train_step(self, state: TrainState, batch: np.ndarray, lengths: np.ndarray,
-                   labels: np.ndarray, generator: Optional[torch.Generator],
+    def train_step(self, state: TrainState, batch, lengths, labels,
+                   generator: Optional[torch.Generator],
                    masked: bool = True, dropout_rate: Optional[float] = None,
                    remat: bool = False) -> torch.Tensor:
-        """One Adam step on a padded batch; returns the mean cross-entropy
-        (a device scalar, not synchronised)."""
+        """One Adam step on a padded batch (host arrays, or tensors on the
+        trainer's device); returns the mean cross-entropy (a device scalar,
+        not synchronised)."""
         model = state.model.train()
         x = self._tensor(batch, torch.float32)
         lens = self._tensor(lengths, torch.int64) if masked else None
@@ -183,7 +226,7 @@ class Trainer:
         state.optimizer.step()
         return loss.detach()
 
-    def eval_step(self, state: TrainState, batch: np.ndarray, lengths: np.ndarray,
+    def eval_step(self, state: TrainState, batch, lengths,
                   masked: bool = True) -> torch.Tensor:
         """Logits (B, num_classes) of a padded batch in eval mode, no gradient."""
         model = state.model.eval()
@@ -196,16 +239,45 @@ class Trainer:
 
     def eval_logits(self, state: TrainState, sequences: Sequence[np.ndarray],
                     cfg: TrainConfig) -> np.ndarray:
-        """(N, num_classes) logits over length-sorted batches; one copy to
-        the host at the end."""
-        pending = []
-        for idx in length_sorted_batches(sequences, cfg.batch_size):
-            batch, lengths = pad_batch([sequences[i] for i in idx], min_bucket=cfg.min_bucket)
-            pending.append((idx, self.eval_step(state, batch, lengths, cfg.use_length_masking)))
-        out = np.zeros((len(sequences), self.model.num_classes), np.float32)
-        for idx, logits in pending:
-            out[idx] = logits.cpu().numpy()
-        return out
+        """(N, num_classes) logits; one copy to the host at the end."""
+        return self.eval_logits_deferred(state, sequences, cfg).result()
+
+    def eval_logits_deferred(self, state: TrainState, sequences: Sequence[np.ndarray],
+                             cfg: TrainConfig) -> Deferred:
+        """Run the whole eval pass and return a :class:`Deferred` whose
+        result is the (N, num_classes) logits array: the per-batch logits
+        stay on the device until the caller collects them.
+
+        A list is evaluated over length-sorted batches, each padded to its
+        own bucket and uploaded. A :class:`SeqView` is evaluated in view
+        order over batches gathered from the resident tensor (at its one
+        padded length): nothing but the view's row indices is uploaded.
+        """
+        n = len(sequences)
+        groups: List[np.ndarray] = []
+        outs: List[torch.Tensor] = []
+        if isinstance(sequences, SeqView):
+            corpus = sequences.corpus
+            rows = self._tensor(sequences.idx, torch.int64)
+            for start in range(0, n, cfg.batch_size):
+                idx = rows[start : start + cfg.batch_size]
+                groups.append(np.arange(start, min(start + cfg.batch_size, n)))
+                outs.append(self.eval_step(state, corpus.x[idx].to(torch.float32),
+                                           corpus.lengths[idx], cfg.use_length_masking))
+        else:
+            for idx in length_sorted_batches(sequences, cfg.batch_size):
+                batch, lengths = pad_batch([sequences[i] for i in idx],
+                                           min_bucket=cfg.min_bucket)
+                groups.append(idx)
+                outs.append(self.eval_step(state, batch, lengths, cfg.use_length_masking))
+
+        def finalize(host):
+            logits = np.zeros((n, self.model.num_classes), np.float32)
+            for idx, out in zip(groups, host):
+                logits[idx] = out
+            return logits
+
+        return Deferred(outs, finalize)
 
 
 def _checkpointed_forward(model: CNNLSTM, x: torch.Tensor, lengths: Optional[torch.Tensor],
@@ -240,17 +312,307 @@ def _checkpointed_forward(model: CNNLSTM, x: torch.Tensor, lengths: Optional[tor
     )
 
 
-def _mean_val_loss(trainer: Trainer, state: TrainState, sequences, labels,
-                   cfg: TrainConfig) -> float:
+Batch = Tuple[Any, Any, Any]  # padded batch, lengths, labels: host arrays or device tensors
+
+
+def _val_loss(trainer: Trainer, state: TrainState, batches: Iterable[Batch],
+              cfg: TrainConfig) -> float:
     """Batch-averaged validation loss (mean of per-batch means, as the
     reference's ``val_loss / len(val_loader)``); one fetch per pass."""
     losses = []
-    for batch, lengths, labs in batch_iterator(
-        sequences, labels, cfg.batch_size, shuffle=False, min_bucket=cfg.min_bucket
-    ):
+    for batch, lengths, labs in batches:
         logits = trainer.eval_step(state, batch, lengths, cfg.use_length_masking)
         losses.append(F.cross_entropy(logits, trainer._tensor(labs, torch.int64)))
     return float(np.mean(torch.stack(losses).cpu().numpy()))
+
+
+def _mean_val_loss(trainer: Trainer, state: TrainState, sequences, labels,
+                   cfg: TrainConfig) -> float:
+    """:func:`_val_loss` over host sequences, streamed in order."""
+    return _val_loss(trainer, state, batch_iterator(
+        sequences, labels, cfg.batch_size, shuffle=False, min_bucket=cfg.min_bucket), cfg)
+
+
+# --- the device-resident corpus ------------------------------------------------
+
+
+def _corpus_dtype(dtype) -> torch.dtype:
+    """Storage dtype of a resident corpus: ``dtype`` (a torch dtype or its
+    name), else the ``RSAF_CORPUS_DTYPE`` environment variable, else float32."""
+    if dtype is None:
+        dtype = os.environ.get("RSAF_CORPUS_DTYPE") or torch.float32
+    if not isinstance(dtype, torch.dtype):
+        dtype = getattr(torch, dtype if isinstance(dtype, str) else np.dtype(dtype).name)
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"resident corpus dtype must be float32 or bfloat16, not {dtype}")
+    return dtype
+
+
+def _aligned_length(max_len: int, align: int) -> int:
+    return max(align, -(-max_len // align) * align)
+
+
+class DeviceCorpus:
+    """A sequence corpus resident on the device as one padded (N, T, D) tensor.
+
+    Uploaded ONCE per CV run; folds and trials reference rows through
+    :class:`SeqView` index views, so no fold uploads a batch. Padding is to
+    the corpus max length aligned up to ``align`` frames: one shape for
+    every fold and trial.
+    """
+
+    def __init__(self, sequences: Sequence[np.ndarray], align: int = 128, dtype=None,
+                 device: DeviceLike = "cuda"):
+        """``dtype`` sets the RESIDENT storage dtype (default float32, or the
+        ``RSAF_CORPUS_DTYPE`` environment variable). ``bfloat16`` halves the
+        footprint (111 recordings × ~12k frames × 768 are 4.2 GB in float32) at
+        a ~3e-3 relative quantisation of the stored embeddings, rounded on
+        the host; consumers gather rows and cast back to float32 on the
+        device."""
+        device = resolve_device(device)
+        self.seqs = [np.asarray(s, dtype=np.float32) for s in sequences]
+        lens = [len(s) for s in self.seqs]
+        buf = np.zeros((len(self.seqs), _aligned_length(max(lens), align),
+                        self.seqs[0].shape[1]), np.float32)
+        for i, s in enumerate(self.seqs):
+            buf[i, : len(s)] = s
+        self.x = torch.from_numpy(buf).to(_corpus_dtype(dtype)).to(device)
+        self.host_lengths = np.asarray(lens, np.int64)
+        self.lengths = torch.from_numpy(self.host_lengths).to(device)
+
+    def view(self, idx: np.ndarray) -> "SeqView":
+        return SeqView(self, np.asarray(idx, np.int64))
+
+    def trimmed_to(self, rows: np.ndarray, align: int = 128) -> "DeviceCorpus":
+        """The same storage, its time axis cut to the aligned max length of
+        ``rows``: what ``DeviceCorpus`` of those rows alone would pad to, so
+        rows left out of a CV run do not set its padded length."""
+        t_pad = _aligned_length(int(self.host_lengths[np.asarray(rows)].max()), align)
+        if t_pad >= self.x.shape[1]:
+            return self
+        out = copy.copy(self)
+        out.x = self.x[:, :t_pad]
+        return out
+
+    @classmethod
+    def from_resident(cls, resident) -> "DeviceCorpus":
+        """Corpus over sequences that already lie on the device (a
+        :class:`ResidentCorpus`, or an extractor's resident output with
+        ``x`` (N[+1], T_pad, D), ``lengths``, ``names`` and row access by
+        name). Nothing is copied: the tensor is adopted as it is. Host-side
+        row access (``.seqs[i]``) downloads lazily, for the streaming path."""
+        own = getattr(resident, "device_corpus", None)
+        if own is not None:  # ResidentCorpus already holds one
+            return own()
+        self = cls.__new__(cls)
+        self.x = resident.x
+        self.host_lengths = np.asarray(resident.lengths, np.int64)
+        self.lengths = torch.from_numpy(self.host_lengths).to(self.x.device)
+        self.seqs = _LazyRows(resident)
+        return self
+
+    @staticmethod
+    def nbytes_estimate(sequences: Sequence[np.ndarray], align: int = 128) -> int:
+        t_pad = _aligned_length(max(len(s) for s in sequences), align)
+        return 4 * len(sequences) * t_pad * int(np.asarray(sequences[0]).shape[1])
+
+
+class ResidentCorpus:
+    """A host sequence mapping plus its ONE-TIME device upload, reusable
+    across CV calls::
+
+        seqs = ResidentCorpus(sequences_dict)
+        run_dl_nested_cv(seqs, meta, ...)          # adopts the resident tensor
+        run_dl_standard_kfold_cv(seqs, meta, ...)  # no second upload
+
+    The engines detect it through the ``is_resident_sequences`` marker.
+    Behaves as a read-only Mapping for host consumers. The arrays are
+    adopted by reference: do not mutate them afterwards.
+    """
+
+    is_resident_sequences = True  # duck-type marker for the CV engines
+
+    def __init__(self, sequences_dict, align: int = 128, dtype=None,
+                 device: DeviceLike = "cuda"):
+        self.names = list(sequences_dict.keys())
+        self._index = {n: i for i, n in enumerate(self.names)}
+        self._corpus = DeviceCorpus([sequences_dict[n] for n in self.names], align=align,
+                                    dtype=dtype, device=device)
+
+    def device_corpus(self) -> DeviceCorpus:
+        return self._corpus
+
+    def row(self, name: str) -> int:
+        return self._index[name]
+
+    def __len__(self) -> int:
+        return len(self.names)
+
+    def __iter__(self):
+        return iter(self.names)
+
+    def __contains__(self, name) -> bool:
+        return name in self._index
+
+    def keys(self):
+        return list(self.names)
+
+    def __getitem__(self, name):
+        return self._corpus.seqs[self._index[name]]
+
+    def items(self):
+        return [(n, self[n]) for n in self.names]
+
+
+class _LazyRows:
+    """List-of-arrays façade over resident sequences that downloads a row
+    only when it is indexed."""
+
+    def __init__(self, resident):
+        self._resident = resident
+
+    def __len__(self) -> int:
+        return len(self._resident.names)
+
+    def __getitem__(self, i: int) -> np.ndarray:
+        return self._resident[self._resident.names[i]]
+
+
+class SeqView:
+    """List-of-arrays façade over :class:`DeviceCorpus` rows.
+
+    Behaves like ``[corpus.seqs[i] for i in idx]`` for host consumers
+    (len/iteration/indexing), while device consumers (the resident fold,
+    ``eval_logits``) read the resident tensor through ``.corpus``/``.idx``
+    without any transfer.
+    """
+
+    def __init__(self, corpus: DeviceCorpus, idx: np.ndarray):
+        self.corpus = corpus
+        self.idx = idx
+
+    def __len__(self) -> int:
+        return len(self.idx)
+
+    def __getitem__(self, i: int) -> np.ndarray:
+        return self.corpus.seqs[self.idx[i]]
+
+    def subset(self, idx: np.ndarray) -> "SeqView":
+        return SeqView(self.corpus, self.idx[np.asarray(idx, np.int64)])
+
+
+# --- the device-resident fold ----------------------------------------------------
+
+
+def _epoch_batch_plan(
+    n: int, epochs: int, batch_size: int, seed: int
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Batch index plan mirroring ``batch_iterator``'s shuffles exactly:
+    per epoch, a ``RandomState(seed + epoch)`` permutation chunked into
+    full batches (E, S_full, B) plus a trailing remainder (E, r)."""
+    s_full, r = divmod(n, batch_size)
+    full = np.zeros((epochs, s_full, batch_size), np.int32)
+    rem = np.zeros((epochs, r), np.int32)
+    for e in range(epochs):
+        order = np.arange(n)
+        np.random.RandomState(seed + e).shuffle(order)
+        if s_full:
+            full[e] = order[: s_full * batch_size].reshape(s_full, batch_size)
+        if r:
+            rem[e] = order[s_full * batch_size:]
+    return full, rem
+
+
+def _pad_all(sequences, min_bucket: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Pad a whole split to ONE global bucketed length (every batch
+    gathered from it has that length)."""
+    return pad_batch(list(sequences), min_bucket=min_bucket)
+
+
+def _shared_corpus_views(train_sequences, val_sequences) -> bool:
+    return (
+        isinstance(train_sequences, SeqView)
+        and isinstance(val_sequences, SeqView)
+        and train_sequences.corpus is val_sequences.corpus
+    )
+
+
+def _fold_operands(train_sequences, train_labels, val_sequences, val_labels,
+                   cfg: TrainConfig, put: Callable[[np.ndarray, torch.dtype], torch.Tensor]):
+    """The 10 tensor operands of a device-resident fold:
+    (x_tr, len_tr, y_tr, full, rem, x_va, len_va, y_va, va_full, va_rem).
+
+    ``put`` places a host array on the device (``Trainer._tensor``). Views
+    of one resident corpus use its tensor as it is, with row indices into
+    the whole corpus and the labels scattered onto those rows; anything
+    else is padded once per split to ONE bucketed length and uploaded once.
+    Indices and labels are int64, torch's index type.
+    """
+    full, rem = _epoch_batch_plan(len(train_sequences), cfg.epochs, cfg.batch_size, cfg.seed)
+    sv_full = len(val_sequences) // cfg.batch_size
+    if _shared_corpus_views(train_sequences, val_sequences):
+        corpus = train_sequences.corpus
+        tr_idx, va_idx = train_sequences.idx, val_sequences.idx
+        x_tr = x_va = corpus.x
+        len_tr = len_va = corpus.lengths
+        full, rem = tr_idx[full], tr_idx[rem]
+        # labels scattered onto global corpus rows (every gathered id is in
+        # exactly one of the two views)
+        y_global = np.zeros(len(corpus.seqs), np.int64)
+        y_global[tr_idx] = np.asarray(train_labels, np.int64)
+        y_global[va_idx] = np.asarray(val_labels, np.int64)
+        y_tr = y_va = put(y_global, torch.int64)
+        va_order = va_idx
+    else:
+        x_tr, len_tr = _pad_all(train_sequences, cfg.min_bucket)
+        x_va, len_va = _pad_all(val_sequences, cfg.min_bucket)
+        x_tr, x_va = put(x_tr, torch.float32), put(x_va, torch.float32)
+        len_tr, len_va = put(len_tr, torch.int64), put(len_va, torch.int64)
+        y_tr = put(np.asarray(train_labels, np.int64), torch.int64)
+        y_va = put(np.asarray(val_labels, np.int64), torch.int64)
+        va_order = np.arange(len(val_sequences), dtype=np.int64)
+    va_full = va_order[: sv_full * cfg.batch_size].reshape(sv_full, cfg.batch_size)
+    va_rem = va_order[sv_full * cfg.batch_size:]
+    return (x_tr, len_tr, y_tr, put(full, torch.int64), put(rem, torch.int64),
+            x_va, len_va, y_va, put(va_full, torch.int64), put(va_rem, torch.int64))
+
+
+def _device_fold_fits(train_sequences, val_sequences, cfg: TrainConfig) -> bool:
+    """auto-mode gate: padded train+val arrays must fit the budget."""
+    if not len(train_sequences) or not len(val_sequences) or cfg.epochs <= 0:
+        return False
+    d = int(np.asarray(train_sequences[0]).shape[1])
+    t_tr = bucket_length(max(len(s) for s in train_sequences), cfg.min_bucket)
+    t_va = bucket_length(max(len(s) for s in val_sequences), cfg.min_bucket)
+    n_bytes = 4 * d * (len(train_sequences) * t_tr + len(val_sequences) * t_va)
+    return n_bytes <= cfg.device_fold_budget_bytes
+
+
+def _gathered(x: torch.Tensor, lengths: torch.Tensor, y: torch.Tensor,
+              index_batches: Iterable[torch.Tensor]) -> Iterator[Batch]:
+    """Batches gathered on the device, at the resident tensor's full padded
+    length; rows stored as bfloat16 are cast to float32 after the gather."""
+    for idx in index_batches:
+        if idx.numel():
+            yield x[idx].to(torch.float32), lengths[idx], y[idx]
+
+
+def _train_model_device(trainer: Trainer, train_sequences, train_labels, val_sequences,
+                        val_labels, cfg: TrainConfig, state: TrainState,
+                        generator: torch.Generator, verbose: bool = False):
+    """One device-resident fold: the operands go to the device once, then
+    the shared epoch loop runs over gathered batches."""
+    (x_tr, len_tr, y_tr, full, rem, x_va, len_va, y_va, va_full, va_rem) = _fold_operands(
+        train_sequences, train_labels, val_sequences, val_labels, cfg, trainer._tensor)
+    return _run_epochs(
+        trainer, state, generator, cfg,
+        lambda epoch: _gathered(x_tr, len_tr, y_tr, (*full[epoch], rem[epoch])),
+        lambda: _gathered(x_va, len_va, y_va, (*va_full, va_rem)),
+        verbose,
+    )
+
+
+# --- the fold ------------------------------------------------------------------------
 
 
 def _snapshot(state: TrainState) -> Dict[str, Any]:
@@ -267,34 +629,14 @@ def _restore(state: TrainState, snap: Dict[str, Any]) -> None:
     state.lr = snap["lr"]
 
 
-def train_model(
-    trainer: Trainer,
-    train_sequences: Sequence[np.ndarray],
-    train_labels: Sequence[int],
-    val_sequences: Sequence[np.ndarray],
-    val_labels: Sequence[int],
-    cfg: TrainConfig,
-    verbose: bool = False,
-    initial_weights: Optional[Mapping[str, torch.Tensor]] = None,
-) -> Tuple[TrainState, List[float], List[float]]:
-    """Full training run with early stopping and best-weight restore.
-
-    Returns (state, train_loss_history, val_loss_history): per-epoch mean
-    train loss and val loss, plateau LR decay, a stop after ``patience``
-    epochs without val improvement, and the best-val-loss weights restored
-    (``restore_best``). Batches are shuffled by ``RandomState(seed + epoch)``
-    as in the JAX package; dropout draws from a ``torch.Generator`` on the
-    trainer's device seeded with ``cfg.seed``. ``initial_weights`` (a port
-    state dict) replaces the seeded init, e.g. to start from a JAX model's
-    weights.
-    """
-    if cfg.device_fold == "on":
-        raise NotImplementedError(
-            "device_fold='on': the device-resident fold is not ported yet "
-            "(ROADMAP queue 1 item 4); use 'auto' or 'off' for the streaming path"
-        )
-    state = trainer.init_state(cfg.seed, cfg.learning_rate, initial_weights)
-    generator = torch.Generator(device=trainer.device).manual_seed(cfg.seed)
+def _run_epochs(trainer: Trainer, state: TrainState, generator: torch.Generator,
+                cfg: TrainConfig, train_batches: Callable[[int], Iterable[Batch]],
+                val_batches: Callable[[], Iterable[Batch]],
+                verbose: bool = False) -> Tuple[TrainState, List[float], List[float]]:
+    """The epoch loop of both paths: ``train_batches(epoch)`` and
+    ``val_batches()`` yield (batch, lengths, labels), as host arrays or as
+    tensors on the device. One model call a step, so both paths draw the
+    dropout generator in the same order."""
     scheduler = ReduceLROnPlateau(cfg.plateau_factor, cfg.plateau_patience)
     best_val = float("inf")
     best = _snapshot(state)
@@ -306,15 +648,12 @@ def train_model(
         epoch_losses = [
             trainer.train_step(state, batch, lengths, labs, generator,
                                cfg.use_length_masking, cfg.dropout_rate, cfg.remat)
-            for batch, lengths, labs in batch_iterator(
-                train_sequences, train_labels, cfg.batch_size, shuffle=True,
-                seed=cfg.seed + epoch, min_bucket=cfg.min_bucket,
-            )
+            for batch, lengths, labs in train_batches(epoch)
         ]
         # one fetch per epoch, not per step
         train_hist.append(float(np.mean(torch.stack(epoch_losses).cpu().numpy())))
 
-        val_loss = _mean_val_loss(trainer, state, val_sequences, val_labels, cfg)
+        val_loss = _val_loss(trainer, state, val_batches(), cfg)
         val_hist.append(val_loss)
         if cfg.use_plateau:
             state.lr = scheduler.step(val_loss, state.lr)
@@ -338,6 +677,86 @@ def train_model(
     return state, train_hist, val_hist
 
 
+def train_model(
+    trainer: Trainer,
+    train_sequences: Sequence[np.ndarray],
+    train_labels: Sequence[int],
+    val_sequences: Sequence[np.ndarray],
+    val_labels: Sequence[int],
+    cfg: TrainConfig,
+    verbose: bool = False,
+    initial_weights: Optional[Mapping[str, torch.Tensor]] = None,
+    defer_histories: bool = False,
+):
+    """Full training run with early stopping and best-weight restore.
+
+    Returns (state, train_loss_history, val_loss_history): per-epoch mean
+    train loss and val loss, plateau LR decay, a stop after ``patience``
+    epochs without val improvement, and the best-val-loss weights restored
+    (``restore_best``). Batches are shuffled by ``RandomState(seed + epoch)``
+    as in the JAX package; dropout draws from a ``torch.Generator`` on the
+    trainer's device seeded with ``cfg.seed``. ``initial_weights`` (a port
+    state dict) replaces the seeded init, e.g. to start from a JAX model's
+    weights.
+
+    ``cfg.device_fold`` picks the path (see the module docstring): ``"on"``,
+    or ``"auto"`` with train and val as views of one :class:`DeviceCorpus`
+    or with padded arrays that fit ``cfg.device_fold_budget_bytes``, takes
+    the device-resident fold; otherwise batches stream from the host.
+
+    With ``defer_histories`` the return is ``(state, Deferred)`` whose result
+    is ``(train_hist, val_hist)``, the JAX package's signature for the CV
+    engines; the histories are already on the host here (one fetch an
+    epoch), so the Deferred is ready.
+    """
+    state = trainer.init_state(cfg.seed, cfg.learning_rate, initial_weights)
+    generator = torch.Generator(device=trainer.device).manual_seed(cfg.seed)
+    if cfg.device_fold != "off" and (
+        cfg.device_fold == "on"
+        or _shared_corpus_views(train_sequences, val_sequences)
+        or _device_fold_fits(train_sequences, val_sequences, cfg)
+    ):
+        state, train_hist, val_hist = _train_model_device(
+            trainer, train_sequences, train_labels, val_sequences, val_labels, cfg,
+            state, generator, verbose)
+    else:
+        state, train_hist, val_hist = _run_epochs(
+            trainer, state, generator, cfg,
+            lambda epoch: batch_iterator(
+                train_sequences, train_labels, cfg.batch_size, shuffle=True,
+                seed=cfg.seed + epoch, min_bucket=cfg.min_bucket),
+            lambda: batch_iterator(
+                val_sequences, val_labels, cfg.batch_size, shuffle=False,
+                min_bucket=cfg.min_bucket),
+            verbose,
+        )
+    if defer_histories:
+        return state, Deferred.ready((train_hist, val_hist))
+    return state, train_hist, val_hist
+
+
+def evaluate_model_deferred(
+    trainer: Trainer,
+    state: TrainState,
+    sequences: Sequence[np.ndarray],
+    labels: Sequence[int],
+    cfg: TrainConfig,
+) -> Deferred:
+    """Deferred :func:`evaluate_model`: runs the eval pass and returns a
+    Deferred whose result is (y_true, y_pred, p_class1); the softmax is
+    taken on the host when the result is collected."""
+    d = trainer.eval_logits_deferred(state, sequences, cfg)
+    y_true = np.asarray(labels)
+
+    def finalize(host):
+        logits = d.finalize(host)
+        z = np.exp(logits - logits.max(axis=-1, keepdims=True))
+        probs = (z / z.sum(axis=-1, keepdims=True))[:, 1]
+        return y_true, np.argmax(logits, axis=-1), probs.astype(np.float32)
+
+    return Deferred(d.arrays, finalize)
+
+
 def evaluate_model(
     trainer: Trainer,
     state: TrainState,
@@ -347,7 +766,4 @@ def evaluate_model(
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """(y_true, y_pred, p_class1), the contract of the reference's
     ``_eval_model``."""
-    logits = trainer.eval_logits(state, sequences, cfg)
-    probs = torch.softmax(torch.from_numpy(logits), dim=-1)[:, 1].numpy()
-    preds = np.argmax(logits, axis=-1)
-    return np.asarray(labels), np.asarray(preds), np.asarray(probs)
+    return evaluate_model_deferred(trainer, state, sequences, labels, cfg).result()

@@ -155,6 +155,49 @@ def test_train_step_on_card_matches_cpu(cuda_device):
 VITERBI_SCHEMES = {"opensmile": (10.0, 0.0, 10.0), "praat": (0.175, 0.0, 0.07)}
 
 
+def test_resident_fold_on_card_matches_streaming_and_cpu(cuda_device):
+    """The device-resident fold on the card: batches gathered from a corpus
+    tensor on the card launch K3/K4 (two each a step), upload nothing but
+    labels, plans and row indices, and give the streaming fold's and the
+    CPU's losses (one-bucket data, dropout off: 1e-5)."""
+    from robust_speech_analysis_framework_tpu_torch.ops.framing import collect
+
+    rng = np.random.default_rng(2)
+    seqs = [rng.normal(size=(int(t), 24)).astype(np.float32) for t in rng.integers(33, 65, 12)]
+    labels = np.arange(12) % 2
+    template = CNNLSTM(input_dim=24, cnn_out_channels=16, lstm_hidden_dim=16, dropout_rate=0.0)
+    template.res_block1.dropout = template.res_block2.dropout = 0.0
+    cfg = dict(learning_rate=1e-2, epochs=2, batch_size=4, min_bucket=16, dropout_rate=0.0)
+    hist, uploads = {}, []
+    real = loops.Trainer._tensor
+    for where, fold in ((cuda_device, "on"), (cuda_device, "off"), ("cpu", "on")):
+        corpus = loops.DeviceCorpus(seqs, align=64, device=where)
+        assert corpus.x.device.type == torch.device(where).type
+        view = corpus.view(np.arange(12))
+        trainer = loops.Trainer(template, device=where)
+        counters = (lstm_ops.lstm_scan_fwd_res_grouped, lstm_ops.lstm_scan_bwd_grouped)
+        before = [c.launches for c in counters]
+        if (where, fold) == (cuda_device, "on"):
+            trainer._tensor = lambda a, dtype: (
+                uploads.append(0 if isinstance(a, torch.Tensor) else np.asarray(a).nbytes)
+                or real(trainer, a, dtype))
+        state, train_hist, val_hist = loops.train_model(
+            trainer, view.subset(np.arange(8)), labels[:8], view.subset(np.arange(8, 12)),
+            labels[8:], loops.TrainConfig(**cfg, device_fold=fold))
+        hist[(str(where), fold)] = train_hist + val_hist
+        if where != "cpu":
+            assert [c.launches - b for c, b in zip(counters, before)] == [8, 8]  # 4 steps x 2 layers
+            deferred = loops.evaluate_model_deferred(trainer, state, view, labels,
+                                                     loops.TrainConfig(**cfg))
+            assert all(t.is_cuda for t in deferred.arrays)
+            y_true, y_pred, y_prob = collect([deferred])[0]
+            assert y_prob.shape == (12,) and np.isfinite(y_prob).all()
+    assert max(uploads) <= 8 * 2 * 8  # the int64 plan of 2 epochs x 8 train rows
+    on, off, cpu = hist[("cuda", "on")], hist[("cuda", "off")], hist[("cpu", "on")]
+    np.testing.assert_allclose(on, off, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(on, cpu, rtol=0, atol=1e-4)
+
+
 @pytest.mark.parametrize("scheme", sorted(VITERBI_SCHEMES))
 @pytest.mark.parametrize("b,t,c", [(3, 37, 7), (4, 2000, 7), (2, 500, 15), (5, 1, 3),
                                    (1, 300, 32), (2, 129, 1)])

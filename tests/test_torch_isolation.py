@@ -11,16 +11,22 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
 from robust_speech_analysis_framework_tpu_torch.device import resolve_device
+from robust_speech_analysis_framework_tpu_torch.eval import dl_cv
 from robust_speech_analysis_framework_tpu_torch.features.opensmile import OpenSmileExtractor
 from robust_speech_analysis_framework_tpu_torch.features.wav2vec2 import Wav2Vec2Extractor
 from robust_speech_analysis_framework_tpu_torch.models.cnn_lstm import build_cnn_lstm
 from robust_speech_analysis_framework_tpu_torch.models.wav2vec2 import Wav2Vec2Config
 from robust_speech_analysis_framework_tpu_torch.serving import Predictor
-from robust_speech_analysis_framework_tpu_torch.train.loops import Trainer
+from robust_speech_analysis_framework_tpu_torch.train.loops import (
+    DeviceCorpus,
+    ResidentCorpus,
+    Trainer,
+)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -55,7 +61,7 @@ def test_port_imports_no_jax():
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 35  # every module of the three slices was imported
+    assert n_modules >= 39  # every module of the four slices was imported
 
 
 def test_chip_smoke_fails_without_a_card():
@@ -69,9 +75,16 @@ def test_chip_smoke_fails_without_a_card():
     assert '"ok": true' not in proc.stdout
 
 
+def _tiny_cv_inputs():
+    seqs = [np.zeros((4, 8), np.float32)] * 20
+    return seqs, np.arange(20) % 2
+
+
 @pytest.mark.parametrize(
-    "entry", ["extractor", "cnn_lstm", "predictor", "trainer", "device", "opensmile"])
+    "entry", ["extractor", "cnn_lstm", "predictor", "trainer", "device", "opensmile",
+              "device_corpus", "resident_corpus", "standard_cv", "nested_cv"])
 def test_entry_points_default_to_cuda(entry):
+    hp = {"learning_rate": 1e-3, "cnn_out_channels": 8, "lstm_hidden_dim": 8}
     build = {
         "extractor": lambda: Wav2Vec2Extractor(
             config=Wav2Vec2Config(**SMALL), allow_random_init=True).device,
@@ -86,6 +99,15 @@ def test_entry_points_default_to_cuda(entry):
         ).device,
         "device": lambda: resolve_device(),
         "opensmile": lambda: OpenSmileExtractor().device,
+        "device_corpus": lambda: DeviceCorpus(_tiny_cv_inputs()[0]).x.device,
+        "resident_corpus": lambda: ResidentCorpus(
+            {"a": np.zeros((4, 8), np.float32)}).device_corpus().x.device,
+        "standard_cv": lambda: torch.device("cuda") if dl_cv.standard_kfold_cv(
+            *_tiny_cv_inputs(), hp, n_splits=2, epochs=1) else None,
+        "nested_cv": lambda: torch.device("cuda") if dl_cv.nested_cv(
+            *_tiny_cv_inputs(), n_splits_outer=2, n_splits_inner=2, n_trials=1, epochs=1,
+            inner_epochs=1, search_space={k: ("categorical", [v]) for k, v in hp.items()},
+        ) else None,
     }[entry]
     if torch.cuda.is_available():
         assert build().type == "cuda"
@@ -107,6 +129,22 @@ def test_opensmile_front_door_defaults_to_cuda():
     else:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             extract_opensmile_features(empty)
+
+
+@pytest.mark.parametrize("engine", ["standard", "nested"])
+def test_cv_front_doors_default_to_cuda(engine):
+    """The DataFrame front doors refuse before they touch their inputs."""
+    import pandas as pd
+
+    meta = pd.DataFrame({"unique_participant_id": [], "label": []})
+    run = {"standard": lambda: dl_cv.run_dl_standard_kfold_cv({}, meta, {}),
+           "nested": lambda: dl_cv.run_dl_nested_cv({}, meta)}[engine]
+    if torch.cuda.is_available():
+        with pytest.raises(ValueError, match="no overlap"):
+            run()
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            run()
 
 
 def test_cpu_must_be_asked_for():

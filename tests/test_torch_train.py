@@ -60,6 +60,16 @@ ZERO_GRAD = (
 )
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """These tensors are tiny: torch's intra-op threads gain nothing on them
+    and, with several test workers on one machine, only contend."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 class _NoDropout(flax.linen.Module):
     """Stands in for ``flax.linen.Dropout`` inside these tests: the identity."""
 
@@ -321,14 +331,6 @@ def test_train_config_defaults_match_jax():
     ours = {f.name: f.default for f in loops.TrainConfig.__dataclass_fields__.values()}
     theirs = {f.name: f.default for f in jax_loops.TrainConfig.__dataclass_fields__.values()}
     assert ours == theirs
-
-
-def test_device_fold_on_is_not_ported_yet():
-    trainer = loops.Trainer(_port_template(), device="cpu")
-    seqs, labels = _corpus(0, 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        loops.train_model(trainer, seqs, labels, seqs, labels,
-                          loops.TrainConfig(device_fold="on", epochs=1))
 
 
 def test_remat_matches_plain_training_with_dropout():
