@@ -28,7 +28,11 @@ without them. Phases, each of which raises on failure:
    from the ones K3 used (printed); K4's sweep alone, and at batch tiles
    1/2/4 at B=64; the dWh kernel alone at ragged shapes (T=1: all zeros;
    T=2; B=1 and 3; H=24, 40, 64; rows that do not fill the last slice) with
-   its row split printed and two calls bit-equal;
+   its row split printed and two calls bit-equal; and every LSTM kernel
+   (K1, K3, K4 whole, its pre-pass, its sweep alone, dWh) at the lanes
+   shape of a round of 8 trials at the CV corpus's length (T=2176, G=16:
+   8 lanes x 2 directions, B=4, H=64 and H=128) against its plain version,
+   with times, bounds and the batch tiles and dWh split chosen at G=16;
 4. flagship forward: CNNLSTM(768, 128, 128), batch 128 × 4480 × 768,
    lengths 4378; two kernel launches per forward; logits of two rows agree
    with the same model on the CPU; median time and a profiler breakdown;
@@ -78,7 +82,19 @@ without them. Phases, each of which raises on failure:
     results of the right shapes; upload time, the resident fold's train
     step beside the streaming fold's, wall per fold and per trial, peak
     memory; and one fold of one-bucket sequences through the resident and
-    the streaming path, whose first-epoch losses agree to 1e-5.
+    the streaming path, whose first-epoch losses agree to 1e-5. Then the
+    lane-batched trials over the same tensor: one ``train_trials_device``
+    call of 4 lanes (4 learning and dropout rates, 2 epochs at batch 4)
+    against ``train_model`` of each of its trials (histories to 1e-4
+    relative), and the nested engine with ``trial_batch=8`` (2 outer folds,
+    one round of 8 trials each, 2 inner folds x 2 epochs at batch 4, 2 final
+    epochs); counters reset just before and read just after (K3, K4, its
+    pre-pass and dWh twice per lane step and per final step, K1 twice per
+    eval batch, the lane steps recounted from the splits: one trial's
+    schedule a round); no upload beyond labels, rates and batch plans; wall
+    per round and per trial beside the sequential nested run's trial, the
+    median lane step, peak memory, a lane step at the flagship widths (8
+    lanes, 4 x 4352 x 768) beside 8 sequential batch-4 steps, and its profile.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.
@@ -88,6 +104,7 @@ from __future__ import annotations
 
 import collections
 import copy
+import dataclasses
 import json
 import os
 import re
@@ -152,6 +169,17 @@ CV_STANDARD = dict(n_splits=2, epochs=2, patience=25, batch_size=8, seed=42)
 CV_NESTED = dict(n_splits_outer=2, n_splits_inner=2, n_trials=3, epochs=2, patience=10,
                  batch_size=8, inner_epochs=2, inner_batch_size=4, seed=42)
 CV_BUCKET = 4096  # the one bucket of the resident-vs-streaming fold
+# lane-batched trials: a round of 8 trials trained together, and the kernels'
+# shapes in one of its inner-fold steps (T after the max-pool of the CV
+# corpus's padded length, 4352; G = 8 lanes x 2 directions; batch 4)
+LANES = 8
+LANES_SHAPES = {"h64": (4352 // 2, 2 * LANES, 4, 64), "h128": (4352 // 2, 2 * LANES, 4, 128)}
+CV_LANES_NESTED = dict(CV_NESTED, n_trials=LANES, trial_batch=LANES)
+# one train_trials_device call of 4 lanes vs train_model of each trial: lr and
+# dropout rate inside the default search space, a searched architecture
+LANE_PARITY_HP = {"cnn_out_channels": 128, "lstm_hidden_dim": 64, "activation_fn": "gelu"}
+LANE_PARITY_LRS, LANE_PARITY_RATES = (1e-4, 3e-4, 1e-3, 3e-5), (0.2, 0.3, 0.5, 0.4)
+LANE_TOL = 1e-4  # relative, per-lane histories: grouped cuDNN convs add in another order
 
 SCAN_TILES = (1, 2)  # the forward scan's batch tiles, timed at the flagship shape
 
@@ -628,6 +656,97 @@ def train_kernel_phase(dev: torch.device) -> dict:
     return records
 
 
+def timed_once(fn):
+    """(result, device ms) of one call of ``fn``: for the plain versions,
+    whose one call for the check is also their time."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def lanes_kernel_phase(dev: torch.device) -> dict:
+    """Every LSTM kernel at a round of 8 lanes (G = 16) against its plain
+    version, timed, at H = 64 and 128: the shapes where the batch tile and
+    the dWh split take other branches than at G = 2. Returns, by kernel, its
+    timings by shape (the records' ``lanes`` entry)."""
+    gen = torch.Generator(device=dev).manual_seed(6)
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    lanes = {}
+    for label, (t, g, b, h) in LANES_SHAPES.items():
+        gates, wh, dhout = _train_kernel_inputs(dev, gen, t, g, b, h)
+        hs, cs = lstm_ops.lstm_scan_fwd_res_grouped(gates, wh)
+        dg, dwh = lstm_ops.lstm_scan_bwd_grouped(gates, hs, cs, wh, dhout)
+        acts = lstm_ops.lstm_gate_acts_grouped(gates, hs, wh)
+        swept = acts.clone()
+        lstm_ops._launch_sweep(swept, cs, wh, dhout)
+        cases = {  # name: (kernel, its output now, plain version, bound)
+            "lstm_scan_grouped": (lambda: lstm_ops.lstm_scan_grouped(gates, wh),
+                                  lstm_ops.lstm_scan_grouped(gates, wh),
+                                  lambda: lstm_ops.lstm_scan_reference_grouped(gates, wh),
+                                  lstm_bound_ms(t, g, b, h)),
+            "lstm_scan_fwd_res_grouped": (
+                lambda: lstm_ops.lstm_scan_fwd_res_grouped(gates, wh), (hs, cs),
+                lambda: lstm_ops.lstm_scan_fwd_res_reference_grouped(gates, wh),
+                lstm_bound_ms(t, g, b, h, save_c=True)),
+            "lstm_scan_bwd_grouped": (
+                lambda: lstm_ops.lstm_scan_bwd_grouped(gates, hs, cs, wh, dhout), (dg, dwh),
+                lambda: lstm_ops.lstm_scan_bwd_reference_grouped(gates, hs, cs, wh, dhout),
+                lstm_bwd_bound_ms(t, g, b, h)),
+            "lstm_gate_acts_grouped": (
+                lambda: lstm_ops.lstm_gate_acts_grouped(gates, hs, wh), acts,
+                lambda: lstm_ops.lstm_gate_acts_reference_grouped(gates, hs, wh),
+                gate_acts_bound_ms(t, g, b, h)),
+            "sweep": (
+                lambda: _sweep_alone_ms(acts, cs, wh, dhout, 0, 3), swept,
+                lambda: lstm_ops.lstm_sweep_from_acts_reference_grouped(acts, cs, wh, dhout),
+                lstm_bwd_bound_ms(t, g, b, h)),
+            "lstm_dwh_grouped": (lambda: lstm_ops.lstm_dwh_grouped(hs, dg),
+                                 lstm_ops.lstm_dwh_grouped(hs, dg),
+                                 lambda: lstm_ops.lstm_dwh_reference_grouped(hs, dg),
+                                 dwh_bound_ms(t, g, b, h)),
+        }
+        timings = {}
+        for name, (kernel, out, plain, (bound, bound_by)) in cases.items():
+            ref, plain_ms = timed_once(plain)
+            outs = out if isinstance(out, tuple) else (out,)
+            refs = ref if isinstance(ref, tuple) else (ref,)
+            errs = [float((o - r).abs().max()) for o, r in zip(outs, refs)]
+            # K4 whole: dgates to KERNEL_TOL, its dWh to DWH_TOL of its scale
+            tols = [DWH_TOL * max(1.0, float(r.abs().max())) if r.dim() == 3 else KERNEL_TOL
+                    for r in refs]
+            if not all(e <= tol for e, tol in zip(errs, tols)):
+                raise AssertionError(f"{name} disagrees with its plain version at lanes {label}: "
+                                     f"max|d| {errs}, tolerances {tols}")
+            ms = kernel() if name == "sweep" else cuda_ms(kernel, 5)
+            timings[name] = {"shape": f"T={t} G={g} B={b} H={h}", "ms": ms, "plain_ms": plain_ms,
+                             "bound_ms": bound, "bound_by": bound_by, "max_abs_err": max(errs)}
+            log(f"[train-kernels] lanes {label} {name} T={t} G={g} B={b} H={h}: max|d|="
+                f"{max(errs):.3e} (tol {max(tols):.3g}); kernel {ms:.4f} ms ({ms / t * 1e3:.3f} us "
+                f"a step), plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({bound_by})")
+        lib = cuda_ms(lambda: torch.einsum("tgbk,tgbj->gkj", hs[:-1], dg[1:]), 5)
+        timings["lstm_dwh_grouped"]["library_ms"] = lib
+        timings["lstm_scan_bwd_grouped"]["sweep_ms"] = timings.pop("sweep")["ms"]
+        slices = lstm_ops._dwh_split((t - 1) * b, g, h, n_sms)
+        tiles = (lstm_ops._pick_batch_tile(g, b, n_sms, lstm_ops.SCAN_LARGEST_TILE),
+                 lstm_ops._pick_batch_tile(g, b, n_sms, lstm_ops.SWEEP_LARGEST_TILE))
+        log(f"[train-kernels] lanes {label} at G={g}: scan batch tile {tiles[0]} "
+            f"({g * -(-b // tiles[0])} blocks), sweep batch tile {tiles[1]} "
+            f"({g * -(-b // tiles[1])} blocks) on {n_sms} SMs; dWh {(t - 1) * b} rows in "
+            f"{slices[0]} slices of {slices[1]} over {-(-4 * h // lstm_ops.DWH_COLS) * g} output "
+            f"tiles; torch.einsum for dWh {lib:.4f} ms")
+        timings["lstm_scan_grouped"]["batch_tile"] = tiles[0]
+        timings["lstm_scan_bwd_grouped"]["batch_tile"] = tiles[1]
+        timings["lstm_dwh_grouped"]["split"] = slices
+        for name, timing in timings.items():
+            lanes.setdefault(name, {})[label] = timing
+    return lanes
+
+
 def _synthetic_corpus(seed: int):
     """N_SEQS Wav2Vec2-width sequences of MIN_FRAMES to SEQ_LEN frames,
     balanced labels, class 1 shifted a little on a few dimensions."""
@@ -728,38 +847,44 @@ def training_phase(dev: torch.device) -> tuple:
 
 class _CvProbe:
     """Harness-side instrumentation of every Trainer the CV engines build:
-    each train step timed (synchronised) with its batch shape, eval batches
-    counted, and the size of every host array that goes to the device
-    through ``Trainer._tensor`` recorded."""
+    each train step (plain or of lanes) timed (synchronised) with its batch
+    shape, eval batches counted, and the size of every host array that goes
+    to the device through ``Trainer._tensor`` recorded."""
 
     def __init__(self):
-        self.steps = []  # (ms, batch shape) per train step
-        self.eval_batches = 0
-        self.uploads = []  # bytes per host array uploaded
-        self._real = {name: getattr(loops.Trainer, name)
-                      for name in ("train_step", "eval_step", "_tensor")}
+        self.steps, self.lane_steps, self.uploads = [], [], []  # the wrappers append to these
+        self.eval_batches = self.lane_eval_batches = 0
+        self._real = {name: getattr(loops.Trainer, name) for name in (
+            "train_step", "eval_step", "train_step_lanes", "eval_step_lanes", "_tensor")}
 
     def __enter__(self):
         probe, real = self, self._real
 
-        def train_step(self, state, batch, *args, **kwargs):
-            torch.cuda.synchronize()
-            start = time.perf_counter()
-            loss = real["train_step"](self, state, batch, *args, **kwargs)
-            torch.cuda.synchronize()
-            probe.steps.append(((time.perf_counter() - start) * 1e3, tuple(batch.shape)))
-            return loss
+        def timed(name, steps):
+            def step(self, state, batch, *args, **kwargs):
+                torch.cuda.synchronize()
+                start = time.perf_counter()
+                loss = real[name](self, state, batch, *args, **kwargs)
+                torch.cuda.synchronize()
+                steps.append(((time.perf_counter() - start) * 1e3, tuple(batch.shape)))
+                return loss
+            return step
 
-        def eval_step(self, *args, **kwargs):
-            probe.eval_batches += 1
-            return real["eval_step"](self, *args, **kwargs)
+        def counted(name, attr):
+            def step(self, *args, **kwargs):
+                setattr(probe, attr, getattr(probe, attr) + 1)
+                return real[name](self, *args, **kwargs)
+            return step
 
         def _tensor(self, a, dtype):
             if not isinstance(a, torch.Tensor):
                 probe.uploads.append(np.asarray(a).nbytes)
             return real["_tensor"](self, a, dtype)
 
-        for name, fn in (("train_step", train_step), ("eval_step", eval_step),
+        for name, fn in (("train_step", timed("train_step", self.steps)),
+                         ("train_step_lanes", timed("train_step_lanes", self.lane_steps)),
+                         ("eval_step", counted("eval_step", "eval_batches")),
+                         ("eval_step_lanes", counted("eval_step_lanes", "lane_eval_batches")),
                          ("_tensor", _tensor)):
             setattr(loops.Trainer, name, fn)
         return self
@@ -769,12 +894,19 @@ class _CvProbe:
             setattr(loops.Trainer, name, fn)
 
     def reset(self):
-        self.steps, self.eval_batches, self.uploads = [], 0, []
+        for records in (self.steps, self.lane_steps, self.uploads):
+            records.clear()
+        self.eval_batches = self.lane_eval_batches = 0
 
 
 def _check_cv_launches(label: str, launches: dict, probe: _CvProbe) -> None:
-    n_steps, n_eval = len(probe.steps), probe.eval_batches
-    log(f"[cv] {label} launches: {launches}; {n_steps} train steps, {n_eval} eval batches")
+    """K3, K4, its pre-pass and dWh twice per train step (a lane step
+    counts once, whatever its lanes), K1 twice per eval batch."""
+    n_steps = len(probe.steps) + len(probe.lane_steps)
+    n_eval = probe.eval_batches + probe.lane_eval_batches
+    log(f"[cv] {label} launches: {launches}; {len(probe.steps)} train steps + "
+        f"{len(probe.lane_steps)} lane steps, {probe.eval_batches} eval batches + "
+        f"{probe.lane_eval_batches} lane eval batches")
     if not (n_steps > 0 and n_eval > 0
             and launches["lstm_scan_fwd_res_grouped"] == launches["lstm_scan_bwd_grouped"]
             == launches["lstm_gate_acts_grouped"] == launches["lstm_dwh_grouped"] == 2 * n_steps
@@ -896,21 +1028,188 @@ def cv_phase(dev: torch.device, streaming_step_ms: float) -> dict:
         if not ok:
             raise AssertionError("the nested engine's results are non-finite or misshapen")
         uploads += probe.uploads
+        peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+
+        # --- lane-batched trials over the same tensor
+        probe.reset()
+        lane_parity(dev, X, y, probe)
+        uploads += probe.uploads
+        probe.reset()
+        lanes = nested_lanes(dev, X, y, probe, trial_s)
+        uploads += probe.uploads
 
     # nothing larger than a label vector or a batch plan went to the device
     limit = 8 * len(seqs) * max(CV_STANDARD["epochs"], CV_NESTED["epochs"],
                                 CV_NESTED["inner_epochs"])
-    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
     log(f"[cv] host-to-device uploads during the folds: {len(uploads)} arrays, largest "
         f"{max(uploads)} B (limit {limit} B: int64 labels or plan of {len(seqs)} rows); "
-        f"peak memory {peak_gib:.3f} GiB, corpus included")
+        f"peak memory of both engines {peak_gib:.3f} GiB, corpus included")
     if max(uploads) > limit:
         raise AssertionError("a CV fold uploaded more than its labels and batch plan")
-    log(f"[cv] main-path launches: {total}")
+    log(f"[cv] main-path launches: {total}; with lane-batched trials: {lanes}")
 
     profile_resident_step(dev, corpus, y)
+    profile_lane_step(dev, corpus, y)
     resident_vs_streaming(dev)
-    return total
+    return total, lanes
+
+
+def _inner_split(X, y: np.ndarray):
+    """Inner fold 0 of outer fold 0 of the nested engine's splits."""
+    tv, _ = next(StratifiedKFold(CV_NESTED["n_splits_outer"], shuffle=True,
+                                 random_state=42).split(X, y))
+    X_tv, y_tv = X.subset(tv), y[tv]
+    tr, va = next(StratifiedKFold(CV_NESTED["n_splits_inner"], shuffle=True,
+                                  random_state=42).split(X_tv, y_tv))
+    return X_tv.subset(tr), y_tv[tr], X_tv.subset(va), y_tv[va]
+
+
+def lane_parity(dev: torch.device, X, y: np.ndarray, probe: _CvProbe) -> None:
+    """One train_trials_device call of 4 lanes against train_model of each
+    of its trials, dropout on, over the resident corpus."""
+    split = _inner_split(X, y)
+    trainer = dl_cv._TrainerCache(DIM, device=dev).get(LANE_PARITY_HP)
+    cfg = loops.TrainConfig(
+        learning_rate=LANE_PARITY_LRS[0], epochs=CV_NESTED["inner_epochs"],
+        patience=CV_NESTED["inner_epochs"] + 1, batch_size=CV_NESTED["inner_batch_size"], seed=42,
+        dropout_rate=LANE_PARITY_RATES[0], use_plateau=False, restore_best=False)
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    states, hist = loops.train_trials_device(trainer, *split, cfg, LANE_PARITY_LRS,
+                                             LANE_PARITY_RATES)
+    torch.cuda.synchronize()
+    lane_wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    _check_cv_launches("lane-parity", launches, probe)
+    worst, walls = 0.0, []
+    for i, (lr, rate) in enumerate(zip(LANE_PARITY_LRS, LANE_PARITY_RATES)):
+        t0 = time.perf_counter()
+        _, th, vh = loops.train_model(trainer, *split, dataclasses.replace(
+            cfg, learning_rate=lr, dropout_rate=rate))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        lane_th, lane_vh = hist.result()[i]
+        if (len(lane_th), len(lane_vh)) != (len(th), len(vh)):
+            raise AssertionError(f"lane {i} ran {len(lane_th)} epochs, its trial {len(th)}")
+        worst = max(worst, *(abs(a - b) / abs(b) for a, b in zip(lane_th + lane_vh, th + vh)))
+        log(f"[cv] lane {i} (lr {lr:g}, dropout {rate}): train {lane_th} val {lane_vh}; "
+            f"train_model of the trial: train {th} val {vh}")
+    log(f"[cv] lane parity, 4 lanes of {LANE_PARITY_HP} over {len(split[0])} train / "
+        f"{len(split[2])} val rows: histories max rel |d| {worst:.3e} (tol {LANE_TOL}); "
+        f"train_trials_device {lane_wall:.3f} s, the 4 trials one by one "
+        f"{sum(walls):.3f} s ({[round(w, 3) for w in walls]})")
+    if not worst <= LANE_TOL:
+        raise AssertionError("a lane of train_trials_device disagrees with its trial's train_model")
+
+
+def nested_lanes(dev: torch.device, X, y: np.ndarray, probe: _CvProbe, trial_s: list) -> dict:
+    """The nested engine with trial_batch=8 over the resident corpus: one
+    round of 8 lanes an outer fold. Returns its launches."""
+    counters = _counters()
+    rounds = []
+    real_round = dl_cv._inner_cv_scores_batch
+
+    def timed_round(*args, **kwargs):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        scores = real_round(*args, **kwargs)
+        torch.cuda.synchronize()
+        rounds.append(time.perf_counter() - start)
+        return scores
+
+    dl_cv._inner_cv_scores_batch = timed_round
+    torch.cuda.reset_peak_memory_stats(dev)
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    try:
+        results, preds, weights = dl_cv.nested_cv(X, y, device=dev, **CV_LANES_NESTED)
+    finally:
+        dl_cv._inner_cv_scores_batch = real_round
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    _check_cv_launches("nested trial_batch=8", launches, probe)
+    # recounted from the splits: a round is one architecture, so each inner
+    # fold trains its lanes on ONE trial's schedule; no early stop at 2 epochs
+    cfg = CV_LANES_NESTED
+    n_rounds = -(-cfg["n_trials"] // cfg["trial_batch"])
+    ibs, bs = cfg["inner_batch_size"], cfg["batch_size"]
+    want = dict(lane_steps=0, lane_eval=0, steps=0, eval=0)
+    outer = StratifiedKFold(cfg["n_splits_outer"], shuffle=True, random_state=42)
+    for tv, test in outer.split(X, y):
+        inner = StratifiedKFold(cfg["n_splits_inner"], shuffle=True, random_state=42)
+        for tr, va in inner.split(tv, y[tv]):
+            want["lane_steps"] += n_rounds * cfg["inner_epochs"] * -(-len(tr) // ibs)
+            want["lane_eval"] += n_rounds * (cfg["inner_epochs"] + 1) * -(-len(va) // ibs)
+        tr, va = train_test_indices(y[tv], n_splits=5, seed=42)
+        want["steps"] += cfg["epochs"] * -(-len(tr) // bs)
+        want["eval"] += cfg["epochs"] * -(-len(va) // bs) + -(-len(test) // bs)
+    got = dict(lane_steps=len(probe.lane_steps), lane_eval=probe.lane_eval_batches,
+               steps=len(probe.steps), eval=probe.eval_batches)
+    if got != want:
+        raise AssertionError(f"nested trial_batch=8: {got}, expected {want}")
+    n_outer = cfg["n_splits_outer"]
+    lane_ms = [ms for ms, _ in probe.lane_steps]
+    seq_trial = statistics.median(trial_s)
+    log(f"[cv] nested engine, trial_batch={LANES}: {n_outer} outer folds x 1 round of {LANES} "
+        f"trials x {cfg['n_splits_inner']} inner folds in {wall:.3f} s; a round "
+        f"{[round(v, 3) for v in rounds]} s, {[round(v / LANES, 3) for v in rounds]} s a trial, "
+        f"beside {seq_trial:.3f} s a trial (median) in the sequential nested run; lane batches "
+        f"{sorted({shape for _, shape in probe.lane_steps})}, lane step first {lane_ms[0]:.3f} ms "
+        f"then median {statistics.median(lane_ms[1:]):.3f} ms (min {min(lane_ms[1:]):.3f}, max "
+        f"{max(lane_ms[1:]):.3f}); peak memory {peak_gib:.3f} GiB, corpus included")
+    for r in results:
+        log(f"[cv] nested trial_batch={LANES} fold {r['fold']}: {json.dumps(r)}")
+    ok = (len(results) == len(preds) == n_outer and len(rounds) == n_outer * n_rounds
+          and weights.shape == (n_outer, DIM) and np.isfinite(weights).all()
+          and all(set(r["best_params"]) == set(dl_cv.DEFAULT_SEARCH_SPACE) for r in results)
+          and all(np.isfinite(p["y_prob"]).all() for p in preds)
+          and sum(len(p["y_true"]) for p in preds) == len(y))
+    if not ok:
+        raise AssertionError("the nested engine's lane rounds gave non-finite or misshapen results")
+    return launches
+
+
+def profile_lane_step(dev: torch.device, corpus, y: np.ndarray) -> None:
+    """One train step of 8 lanes at the flagship widths on a batch of 4
+    gathered from the resident corpus, beside 8 sequential steps of one
+    trial on the same batch; then its device time by kernel."""
+    trainer = loops.Trainer(CNNLSTM(DIM, 2, 128, 128, dropout_rate=0.5), device=dev)
+    single = trainer.init_state(0, 1e-3)
+    states = loops.LaneTrainState.replicate(
+        trainer.init_state(0, 1e-3), torch.full((LANES,), 1e-3, dtype=torch.float64, device=dev))
+    rates = torch.linspace(0.2, 0.5, LANES, dtype=torch.float64, device=dev)
+    rows = torch.arange(CV_NESTED["inner_batch_size"], device=dev)
+    labels = trainer._tensor(y[: len(rows)], torch.int64)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    batch = (corpus.x[rows], corpus.lengths[rows], labels, gen, True)
+
+    def lane_step():
+        trainer.train_step_lanes(states, *batch, rates)
+
+    def one_step():
+        trainer.train_step(single, *batch, 0.5)
+
+    medians = {}
+    for name, step in (("lanes", lane_step), ("one", one_step)):
+        times = []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        medians[name] = statistics.median(times[1:])
+    log(f"[cv] lane train step, {LANES} lanes of CNNLSTM({DIM}, 128, 128) at "
+        f"{(len(rows), *corpus.x.shape[1:])}: median {medians['lanes']:.3f} ms, "
+        f"{medians['lanes'] / LANES:.3f} ms a trial, beside one trial's step {medians['one']:.3f} "
+        f"ms ({LANES} of them {LANES * medians['one']:.3f} ms)")
+    profile_device(f"one lane train step ({LANES} lanes) at {(len(rows), *corpus.x.shape[1:])}",
+                   lane_step, 16)
 
 
 def profile_resident_step(dev: torch.device, corpus, y: np.ndarray) -> None:
@@ -1226,12 +1525,16 @@ def run(dev: torch.device, smi: str) -> None:
 
     records = kernel_phase(dev)
     records.update(train_kernel_phase(dev))
+    for name, by_shape in lanes_kernel_phase(dev).items():
+        records[name]["lanes"] = by_shape
+        records[name]["max_abs_err"] = max(records[name]["max_abs_err"],
+                                           *(t["max_abs_err"] for t in by_shape.values()))
     records.update(viterbi_kernel_phase(dev))
     flagship_phase(dev)
     with tempfile.TemporaryDirectory() as tmp:
         serving = serving_phase(dev, tmp)
     training, streaming_step_ms = training_phase(dev)
-    cv = cv_phase(dev, streaming_step_ms)
+    cv, cv_lanes = cv_phase(dev, streaming_step_ms)
     parity_phase(dev)
     opensmile = opensmile_phase(dev)
 
@@ -1247,7 +1550,7 @@ def run(dev: torch.device, smi: str) -> None:
     ):
         rec = records[name]
         by_path = {"serving": serving[name], "training": training[name], "cv": cv[name],
-                   "opensmile": opensmile[name]}
+                   "cv-lanes": cv_lanes[name], "opensmile": opensmile[name]}
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(by_path.values()),
@@ -1256,7 +1559,7 @@ def run(dev: torch.device, smi: str) -> None:
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec["library_ms"], "shape": rec["shape"],
             "on_main_path": name != "lstm_scan",
-            **{k: rec[k] for k in ("serving", "praat", "sweep_ms", "split") if k in rec},
+            **{k: rec[k] for k in ("serving", "praat", "sweep_ms", "split", "lanes") if k in rec},
         })
     log(f"[card] {smi}")
     print(json.dumps({"kernels": kernels}))

@@ -34,10 +34,6 @@ Where it differs from the JAX package, by design:
 * A ``Trainer`` here holds an architecture and a device, no compiled
   program, so the trainer cache lives for one engine call and is not shared
   by the process.
-* ``trial_batch > 1`` (rounds of trials trained together, lane-batched)
-  raises ``NotImplementedError`` until ``train_trials_device`` is ported.
-  It does not run the sequential schedule instead: the two schedules give
-  different studies.
 * A resident corpus that holds more participants than the metadata names is
   cut to the padded length of the named ones
   (:meth:`~..train.loops.DeviceCorpus.trimmed_to`), which is what the host
@@ -63,8 +59,10 @@ from ..train.loops import (
     TrainConfig,
     Trainer,
     TrainState,
+    _device_fold_fits,
     evaluate_model_deferred,
     train_model,
+    train_trials_device,
 )
 from ..tune import Study, TPESampler
 from .metrics import classification_metrics, f1_macro
@@ -290,6 +288,27 @@ def run_dl_standard_kfold_cv(
     return pd.DataFrame(results), fold_predictions, histories, weights
 
 
+def _inner_config(params: Mapping[str, Any], inner_epochs: int, inner_batch_size: int,
+                  seed: int, use_length_masking: bool, remat: bool) -> TrainConfig:
+    """A tuning trial's fold configuration."""
+    return TrainConfig(
+        learning_rate=float(params["learning_rate"]),
+        epochs=inner_epochs,
+        patience=inner_epochs + 1,  # no early stop in the tuning loop
+        batch_size=inner_batch_size,
+        seed=seed,
+        dropout_rate=float(params.get("dropout_rate", 0.5)),
+        use_length_masking=use_length_masking,
+        remat=remat,
+        # the reference _objective trains plain Adam for a FIXED number of
+        # epochs and scores the final-epoch weights: no plateau decay, no
+        # best-val restore; both would otherwise bias trial scores
+        # optimistically
+        use_plateau=False,
+        restore_best=False,
+    )
+
+
 def _inner_cv_score(
     cache: _TrainerCache,
     params: Mapping[str, Any],
@@ -307,24 +326,9 @@ def _inner_cv_score(
     fetched together at the end of the trial."""
     inner = StratifiedKFold(n_splits=n_splits_inner, shuffle=True, random_state=seed)
     trainer = cache.get(params)
+    cfg = _inner_config(params, inner_epochs, inner_batch_size, seed, use_length_masking, remat)
     deferreds = []
     for tr_idx, val_idx in inner.split(X_tv, y_tv):
-        cfg = TrainConfig(
-            learning_rate=float(params["learning_rate"]),
-            epochs=inner_epochs,
-            patience=inner_epochs + 1,  # no early stop in the tuning loop
-            batch_size=inner_batch_size,
-            seed=seed,
-            dropout_rate=float(params.get("dropout_rate", 0.5)),
-            use_length_masking=use_length_masking,
-            remat=remat,
-            # the reference _objective trains plain Adam for a FIXED number
-            # of epochs and scores the final-epoch weights: no plateau
-            # decay, no best-val restore; both would otherwise bias trial
-            # scores optimistically
-            use_plateau=False,
-            restore_best=False,
-        )
         X_val = _subset(X_tv, val_idx)
         state, _ = train_model(
             trainer, _subset(X_tv, tr_idx), y_tv[tr_idx], X_val, y_tv[val_idx], cfg,
@@ -333,6 +337,56 @@ def _inner_cv_score(
         deferreds.append(evaluate_model_deferred(trainer, state, X_val, y_tv[val_idx], cfg))
     scores = [f1_macro(y_true, y_pred) for y_true, y_pred, _ in collect(deferreds)]
     return float(np.mean(scores))
+
+
+def _inner_cv_scores_batch(
+    cache: _TrainerCache,
+    params_list: Sequence[Mapping[str, Any]],
+    X_tv: Sequence[np.ndarray],
+    y_tv: np.ndarray,
+    n_splits_inner: int,
+    inner_epochs: int,
+    inner_batch_size: int,
+    seed: int,
+    use_length_masking: bool = True,
+    remat: bool = False,
+) -> List[float]:
+    """:func:`_inner_cv_score` of a BATCH of trials, in their order.
+
+    The trials are grouped by architecture; each group trains as ONE
+    :func:`~..train.loops.train_trials_device` call per inner fold (a lane a
+    trial) with its eval pass lane-batched too, and every eval pass is
+    fetched in one collect: a round of K trials costs (architectures × inner
+    folds) fold runs instead of K × inner folds."""
+    inner = StratifiedKFold(n_splits=n_splits_inner, shuffle=True, random_state=seed)
+    folds = list(inner.split(X_tv, y_tv))
+    groups: Dict[tuple, List[int]] = {}
+    for i, p in enumerate(params_list):
+        groups.setdefault(_arch_key(p), []).append(i)
+
+    deferreds, slots = [], []
+    for idxs in groups.values():
+        trainer = cache.get(params_list[idxs[0]])
+        # the first trial's configuration; every lane takes its own rates
+        cfg = _inner_config(params_list[idxs[0]], inner_epochs, inner_batch_size, seed,
+                            use_length_masking, remat)
+        lrs = [float(params_list[i]["learning_rate"]) for i in idxs]
+        rates = [float(params_list[i].get("dropout_rate", 0.5)) for i in idxs]
+        for tr_idx, val_idx in folds:
+            X_val = _subset(X_tv, val_idx)
+            states, _ = train_trials_device(
+                trainer, _subset(X_tv, tr_idx), y_tv[tr_idx], X_val, y_tv[val_idx], cfg,
+                lrs, rates,
+            )
+            deferreds.append(trainer.eval_logits_trials_deferred(states, X_val, cfg))
+            slots.append((idxs, y_tv[val_idx]))
+
+    per_trial: List[List[float]] = [[] for _ in params_list]
+    for logits, (idxs, y_val) in zip(collect(deferreds), slots):
+        preds = np.argmax(logits, axis=-1)  # (lanes, n_val)
+        for lane, ti in enumerate(idxs):
+            per_trial[ti].append(f1_macro(y_val, preds[lane]))
+    return [float(np.mean(s)) for s in per_trial]
 
 
 def _suggest_params(trial, space: Mapping[str, tuple]) -> Dict[str, Any]:
@@ -407,14 +461,8 @@ def nested_cv(
 ) -> Tuple[List[dict], List[dict], np.ndarray]:
     """The nested engine over aligned arrays: (results, fold_predictions,
     stability_weights), ``results`` one dict per outer fold with its
-    ``best_params``."""
-    if trial_batch > 1:
-        raise NotImplementedError(
-            f"trial_batch={trial_batch}: rounds of lane-batched trials "
-            "(train_trials_device, _inner_cv_scores_batch) are not ported yet "
-            "(ROADMAP queue 1 item 4, lane-batched trials); use trial_batch=1, "
-            "the sequential schedule"
-        )
+    ``best_params``. ``trial_batch`` > 1 runs the search in rounds of that
+    many trials (see :func:`run_dl_nested_cv`)."""
     space = dict(search_space or DEFAULT_SEARCH_SPACE)
     y = np.asarray(y)
     X = _as_device_corpus(X, device)
@@ -435,7 +483,24 @@ def nested_cv(
             )
 
         study = Study(direction="maximize", sampler=TPESampler(seed=seed + fold))
-        study.optimize(objective, n_trials=n_trials)
+        probe_cfg = TrainConfig(epochs=inner_epochs, batch_size=inner_batch_size)
+        if trial_batch > 1 and (isinstance(X_tv, SeqView)
+                                or _device_fold_fits(X_tv, X_tv, probe_cfg)):
+            done = 0
+            while done < n_trials:
+                k = min(trial_batch, n_trials - done)
+                asked = [study.ask() for _ in range(k)]
+                # one architecture a round keeps its trials in one lane batch
+                scores = _inner_cv_scores_batch(
+                    cache, _suggest_round(asked, space), X_tv, y_tv,
+                    n_splits_inner, inner_epochs, inner_batch_size, seed,
+                    use_length_masking=use_length_masking, remat=remat,
+                )
+                for t, score in zip(asked, scores):
+                    study.tell(t, score)
+                done += k
+        else:
+            study.optimize(objective, n_trials=n_trials)
         best_params = study.best_params
         fold_best.append(dict(best_params))
         if verbose:
@@ -501,9 +566,17 @@ def run_dl_nested_cv(
 
     Contract of the reference's run_pytorch_nested_cv_with_optuna: returns
     (results_df incl. best_params per fold, fold_predictions,
-    stability_weights). The search is sequential (``trial_batch=1``: the
-    posterior is updated after every single trial, same seed → same
-    trials); ``trial_batch > 1`` raises until lane-batched trials are ported.
+    stability_weights).
+
+    ``trial_batch=1`` searches sequentially: the posterior is updated after
+    every single trial (same seed → same trials). ``trial_batch`` > 1 runs
+    rounds of K trials: K candidates drawn from the current posterior (one
+    architecture a round, :func:`_suggest_round`), trained together as lanes
+    (:func:`_inner_cv_scores_batch`) and told back as a batch, a schedule
+    that is deterministic given the seed but differs from the sequential
+    one. It takes the rounds where the outer fold's train part is resident
+    or fits the device-fold budget, and the sequential search otherwise, as
+    the JAX package does.
     """
     import pandas as pd
 

@@ -53,8 +53,14 @@ Where it differs from the JAX package, by design:
   model's outputs are the same either way.
 * ``DeviceCorpus`` and ``ResidentCorpus`` take the ``device`` they upload to
   (``"cuda"`` unless the caller asks for the CPU) and no ``sharding``: that
-  comes with the multi-device slice. Lane-batched trials
-  (``train_trials_device``) are not ported yet.
+  comes with the multi-device slice.
+* Lane-batched trials (:func:`train_trials_device`): the JAX package vmaps
+  its fold program over K trials; here :class:`CNNLSTMLanes` stacks the K
+  models on a lane axis and one host epoch loop (:func:`_run_epochs_lanes`)
+  keeps each lane's books, so every lane step launches K3, K4 and dWh once a
+  biLSTM layer for all lanes, at G = 2K. A lane whose patience runs out is
+  computed on and restored at the end, as a batched ``while_loop`` freezes
+  it. No ``mesh``/``lane_axis``: that comes with the multi-device slice.
 """
 
 from __future__ import annotations
@@ -72,7 +78,7 @@ import torch.nn.functional as F
 
 from ..data.batching import batch_iterator, bucket_length, length_sorted_batches, pad_batch
 from ..device import DeviceLike, resolve_device
-from ..models.cnn_lstm import CNNLSTM, BatchNorm
+from ..models.cnn_lstm import CNNLSTM, BatchNorm, CNNLSTMLanes
 from ..models.init import init_training_weights_
 from ..ops.framing import Deferred
 
@@ -168,6 +174,159 @@ def fold_lstm_biases_(model: CNNLSTM) -> List[torch.nn.Parameter]:
     return trainable
 
 
+class LaneAdam:
+    """Adam for K lanes, each at its own learning rate.
+
+    ``torch.optim.Adam``'s arithmetic in its order (``lerp_`` of the first
+    moment, ``mul_``/``addcmul_`` of the second, ``step_size = lr / (1 −
+    β1^t)``, ``denom = sqrt(v) / sqrt(1 − β2^t) + eps``, ``p −= step_size · m /
+    denom``) with ``step_size`` a lane's own, so a lane moves as
+    ``torch.optim.Adam`` at that lane's rate would move it. The parameters
+    (lane-major: (K, ...), or K·C for a BatchNorm) are re-seated in one flat
+    buffer and their gradients in another, so one step is a dozen launches
+    for every tensor and lane. ``flat``, ``exp_avg``, ``exp_avg_sq`` and
+    ``steps`` (a count a lane, which a lane's restore can set apart) are the
+    state; ``offsets`` maps a parameter's name to its (start, numel) in the
+    flat buffers.
+    """
+
+    def __init__(self, named_params: Sequence[Tuple[str, torch.nn.Parameter]], lanes: int,
+                 eps: float = 1e-8, betas: Tuple[float, float] = (0.9, 0.999)):
+        self.lanes, self.eps, self.betas = lanes, eps, betas
+        numels = [p.numel() for _, p in named_params]
+        device = named_params[0][1].device
+        self.flat = torch.empty(sum(numels), device=device)
+        self.grad = torch.zeros_like(self.flat)
+        self.offsets: Dict[str, Tuple[int, int]] = {}
+        start = 0
+        with torch.no_grad():
+            for (name, p), n in zip(named_params, numels):
+                self.flat[start : start + n].copy_(p.reshape(-1))
+                p.data = self.flat[start : start + n].view_as(p)
+                # backward adds into a gradient that is already there, in place
+                p.grad = self.grad[start : start + n].view_as(p)
+                self.offsets[name] = (start, n)
+                start += n
+        self.exp_avg = torch.zeros_like(self.flat)
+        self.exp_avg_sq = torch.zeros_like(self.flat)
+        self.steps = [0] * lanes
+        # one lane's numel of each tensor, once a lane: repeat_interleave of a
+        # (K,) vector tiled once a tensor spreads it over the flat layout
+        self._repeats = torch.tensor([n // lanes for n in numels for _ in range(lanes)],
+                                     device=device)
+
+    def per_element(self, values: torch.Tensor) -> torch.Tensor:
+        """A (K,) vector spread over the flat layout: each element gets its lane's value."""
+        return torch.repeat_interleave(values.repeat(len(self.offsets)), self._repeats,
+                                       output_size=self.flat.numel())
+
+    def zero_grad(self) -> None:
+        self.grad.zero_()
+
+    @torch.no_grad()
+    def step(self, lr: torch.Tensor) -> None:
+        """One update of every lane; ``lr`` (K,) float64 on the device. The
+        lanes share one step count (lanes restored to other epochs' states
+        do not: train those one by one, through ``lane_state``)."""
+        if len(set(self.steps)) != 1:
+            raise ValueError(f"lanes at different step counts {self.steps}")
+        beta1, beta2 = self.betas
+        self.steps = [s + 1 for s in self.steps]
+        self.exp_avg.lerp_(self.grad, 1 - beta1)
+        self.exp_avg_sq.mul_(beta2).addcmul_(self.grad, self.grad, value=1 - beta2)
+        bc1 = 1 - beta1 ** self.steps[0]
+        bc2_sqrt = (1 - beta2 ** self.steps[0]) ** 0.5
+        step_size = self.per_element((lr / bc1).to(torch.float32))
+        denom = (self.exp_avg_sq.sqrt() / bc2_sqrt).add_(self.eps)
+        self.flat.addcdiv_(self.exp_avg * step_size, denom, value=-1.0)
+
+    def lane(self, buf: torch.Tensor, i: int) -> Dict[str, torch.Tensor]:
+        """Lane ``i``'s part of each parameter in ``buf`` (one of the flat
+        buffers), as flat copies."""
+        return {name: buf[start : start + n].view(self.lanes, -1)[i].clone()
+                for name, (start, n) in self.offsets.items()}
+
+
+@dataclasses.dataclass
+class LaneTrainState:
+    """K trials of one architecture trained together
+    (:func:`train_trials_device`): the lane-stacked module, its
+    :class:`LaneAdam`, and the lanes' learning rates, a (K,) float64 tensor
+    on the device."""
+
+    model: CNNLSTMLanes
+    optimizer: LaneAdam
+    lr: torch.Tensor
+
+    @classmethod
+    def replicate(cls, state: TrainState, lr: torch.Tensor) -> "LaneTrainState":
+        """``len(lr)`` lanes that each start as ``state`` (its biases folded,
+        its residual blocks' dropout rate kept)."""
+        model = CNNLSTMLanes.from_state_dict(
+            state.model.state_dict(), len(lr), activation_fn=state.model.activation_fn,
+            dropout_rate=state.model.dropout_rate)
+        for block in ("res_block1", "res_block2"):
+            getattr(model, block).dropout = getattr(state.model, block).dropout
+        fold_lstm_biases_(model)
+        trainable = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+        return cls(model, LaneAdam(trainable, len(lr), eps=state.optimizer.defaults["eps"]), lr)
+
+    def lane_state(self, i: int) -> TrainState:
+        """Lane ``i`` as a plain :class:`TrainState`: its parameters, BatchNorm
+        statistics, Adam moments and step count, and its rate."""
+        model = self.model.lane_model(i)
+        lr = float(self.lr[i])
+        optimizer = torch.optim.Adam(fold_lstm_biases_(model), lr=lr, eps=self.optimizer.eps)
+        steps = self.optimizer.steps[i]
+        if steps:
+            shapes = self.model.lane_shapes()
+            exp_avg = self.optimizer.lane(self.optimizer.exp_avg, i)
+            exp_avg_sq = self.optimizer.lane(self.optimizer.exp_avg_sq, i)
+            for name, p in model.named_parameters():
+                if name in exp_avg:
+                    optimizer.state[p] = {
+                        "step": torch.tensor(float(steps)),
+                        "exp_avg": exp_avg[name].reshape(shapes[name]),
+                        "exp_avg_sq": exp_avg_sq[name].reshape(shapes[name]),
+                    }
+        return TrainState(model=model, optimizer=optimizer, lr=lr)
+
+    def _tensors(self) -> List[torch.Tensor]:
+        """Every tensor of the lanes' training state: first the three in the
+        flat layout, then the lane-major ones (BatchNorm statistics, rates)."""
+        stats = [b for n, b in self.model.named_buffers() if not n.endswith("num_batches_tracked")]
+        opt = self.optimizer
+        return [opt.flat, opt.exp_avg, opt.exp_avg_sq, *stats, self.lr]
+
+    def snapshot(self) -> Dict[str, Any]:
+        return {"tensors": [t.clone() for t in self._tensors()],
+                "steps": list(self.optimizer.steps)}
+
+    def copy_lanes(self, dst: Dict[str, Any], src: Dict[str, Any], lanes: Sequence[int]) -> None:
+        """Copy lanes ``lanes`` of ``src`` into ``dst``, each a snapshot or
+        :meth:`live` (this state itself)."""
+        k = self.optimizer.lanes
+        if len(lanes) == k:
+            for d, s in zip(dst["tensors"], src["tensors"]):
+                d.copy_(s)
+        else:
+            mask = torch.zeros(k, dtype=torch.bool)
+            mask[list(lanes)] = True
+            mask = mask.to(self.lr.device)
+            flat_mask = self.optimizer.per_element(mask)
+            for j, (d, s) in enumerate(zip(dst["tensors"], src["tensors"])):
+                if j < 3:
+                    d.copy_(torch.where(flat_mask, s, d))
+                else:
+                    d.view(k, -1).copy_(torch.where(mask[:, None], s.view(k, -1), d.view(k, -1)))
+        for i in lanes:
+            dst["steps"][i] = src["steps"][i]
+
+    def live(self) -> Dict[str, Any]:
+        """This state's own tensors, in :meth:`snapshot`'s form."""
+        return {"tensors": self._tensors(), "steps": self.optimizer.steps}
+
+
 class Trainer:
     """Train and eval steps for one CNN-LSTM architecture on one device.
 
@@ -235,6 +394,36 @@ class Trainer:
             lens = self._tensor(lengths, torch.int64) if masked else None
             return model(x, lens)
 
+    def train_step_lanes(self, state: LaneTrainState, batch, lengths, labels,
+                         generator: Optional[torch.Generator], masked: bool = True,
+                         dropout_rates: Optional[torch.Tensor] = None,
+                         remat: bool = False) -> torch.Tensor:
+        """One Adam step of every lane on a padded batch that all lanes read,
+        lane k at ``dropout_rates[k]`` ((K,) on the device); returns the (K,)
+        mean cross-entropies (on the device, not synchronised)."""
+        model = state.model.train()
+        x = self._tensor(batch, torch.float32)
+        lens = self._tensor(lengths, torch.int64) if masked else None
+        y = self._tensor(labels, torch.int64)
+        if remat:
+            logits = _checkpointed_forward(model, x, lens, dropout_rates, generator)
+        else:
+            logits = model(x, lens, dropout_rates, generator)
+        losses = _lane_cross_entropy(logits, y)
+        state.optimizer.zero_grad()
+        losses.sum().backward()  # a lane's parameters see only its own loss
+        state.optimizer.step(state.lr)
+        return losses.detach()
+
+    def eval_step_lanes(self, state: LaneTrainState, batch, lengths,
+                        masked: bool = True) -> torch.Tensor:
+        """Logits (K, B, num_classes) of a padded batch in eval mode, no gradient."""
+        model = state.model.eval()
+        with torch.no_grad():
+            x = self._tensor(batch, torch.float32)
+            lens = self._tensor(lengths, torch.int64) if masked else None
+            return model(x, lens)
+
     # --- epoch-level API ---------------------------------------------------
 
     def eval_logits(self, state: TrainState, sequences: Sequence[np.ndarray],
@@ -242,34 +431,40 @@ class Trainer:
         """(N, num_classes) logits; one copy to the host at the end."""
         return self.eval_logits_deferred(state, sequences, cfg).result()
 
-    def eval_logits_deferred(self, state: TrainState, sequences: Sequence[np.ndarray],
-                             cfg: TrainConfig) -> Deferred:
-        """Run the whole eval pass and return a :class:`Deferred` whose
-        result is the (N, num_classes) logits array: the per-batch logits
-        stay on the device until the caller collects them.
+    def _eval_batches(self, sequences, cfg: TrainConfig) -> Iterator[Tuple[np.ndarray, Any, Any]]:
+        """(positions in ``sequences``, padded batch, lengths) of an eval pass.
 
-        A list is evaluated over length-sorted batches, each padded to its
-        own bucket and uploaded. A :class:`SeqView` is evaluated in view
-        order over batches gathered from the resident tensor (at its one
-        padded length): nothing but the view's row indices is uploaded.
+        A list goes in length-sorted batches, each padded to its own bucket
+        and uploaded. A :class:`SeqView` goes in view order, in batches
+        gathered from the resident tensor (at its one padded length): nothing
+        but the view's row indices is uploaded.
         """
         n = len(sequences)
-        groups: List[np.ndarray] = []
-        outs: List[torch.Tensor] = []
         if isinstance(sequences, SeqView):
             corpus = sequences.corpus
             rows = self._tensor(sequences.idx, torch.int64)
             for start in range(0, n, cfg.batch_size):
                 idx = rows[start : start + cfg.batch_size]
-                groups.append(np.arange(start, min(start + cfg.batch_size, n)))
-                outs.append(self.eval_step(state, corpus.x[idx].to(torch.float32),
-                                           corpus.lengths[idx], cfg.use_length_masking))
+                yield (np.arange(start, min(start + cfg.batch_size, n)),
+                       corpus.x[idx].to(torch.float32), corpus.lengths[idx])
         else:
             for idx in length_sorted_batches(sequences, cfg.batch_size):
                 batch, lengths = pad_batch([sequences[i] for i in idx],
                                            min_bucket=cfg.min_bucket)
-                groups.append(idx)
-                outs.append(self.eval_step(state, batch, lengths, cfg.use_length_masking))
+                yield idx, batch, lengths
+
+    def eval_logits_deferred(self, state: TrainState, sequences: Sequence[np.ndarray],
+                             cfg: TrainConfig) -> Deferred:
+        """Run the whole eval pass (:meth:`_eval_batches`) and return a
+        :class:`Deferred` whose result is the (N, num_classes) logits array:
+        the per-batch logits stay on the device until the caller collects
+        them."""
+        n = len(sequences)
+        groups: List[np.ndarray] = []
+        outs: List[torch.Tensor] = []
+        for idx, batch, lengths in self._eval_batches(sequences, cfg):
+            groups.append(idx)
+            outs.append(self.eval_step(state, batch, lengths, cfg.use_length_masking))
 
         def finalize(host):
             logits = np.zeros((n, self.model.num_classes), np.float32)
@@ -278,6 +473,35 @@ class Trainer:
             return logits
 
         return Deferred(outs, finalize)
+
+    def eval_logits_trials_deferred(self, states: LaneTrainState,
+                                    sequences: Sequence[np.ndarray],
+                                    cfg: TrainConfig) -> Deferred:
+        """:meth:`eval_logits_deferred` for the lanes of
+        :func:`train_trials_device`: every lane scores the same batches (one
+        gather or upload a batch, one model call for all lanes); the result
+        is the (K, N, num_classes) logits array."""
+        n = len(sequences)
+        groups: List[np.ndarray] = []
+        outs: List[torch.Tensor] = []
+        for idx, batch, lengths in self._eval_batches(sequences, cfg):
+            groups.append(idx)
+            outs.append(self.eval_step_lanes(states, batch, lengths, cfg.use_length_masking))
+
+        def finalize(host):
+            logits = np.zeros((states.model.lanes, n, self.model.num_classes), np.float32)
+            for idx, out in zip(groups, host):
+                logits[:, idx] = out
+            return logits
+
+        return Deferred(outs, finalize)
+
+
+def _lane_cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean cross-entropy of each lane: logits (K, B, C), labels (B,) → (K,)."""
+    k = logits.shape[0]
+    losses = F.cross_entropy(logits.flatten(0, 1), labels.repeat(k), reduction="none")
+    return losses.view(k, -1).mean(dim=1)
 
 
 def _checkpointed_forward(model: CNNLSTM, x: torch.Tensor, lengths: Optional[torch.Tensor],
@@ -733,6 +957,131 @@ def train_model(
     if defer_histories:
         return state, Deferred.ready((train_hist, val_hist))
     return state, train_hist, val_hist
+
+
+# --- lane-batched trials ----------------------------------------------------------------
+
+
+def _val_losses_lanes(trainer: Trainer, state: LaneTrainState, batches: Iterable[Batch],
+                      cfg: TrainConfig) -> torch.Tensor:
+    """Each val batch's mean loss of each lane, (batches, K), on the device."""
+    return torch.stack([
+        _lane_cross_entropy(trainer.eval_step_lanes(state, batch, lengths, cfg.use_length_masking),
+                            trainer._tensor(labs, torch.int64))
+        for batch, lengths, labs in batches
+    ])
+
+
+def _run_epochs_lanes(trainer: Trainer, state: LaneTrainState, generator: torch.Generator,
+                      cfg: TrainConfig, rates: torch.Tensor, lrs: List[float],
+                      train_batches: Callable[[int], Iterable[Batch]],
+                      val_batches: Callable[[], Iterable[Batch]]
+                      ) -> List[Tuple[List[float], List[float]]]:
+    """:func:`_run_epochs` for K lanes, each keeping its own books: plateau
+    decay of its rate (``lrs`` is the host's copy of ``state.lr``), best val
+    loss and snapshot, and patience. A lane whose patience runs out is
+    frozen there: the epochs go on while any lane is active, every lane is
+    computed (as in a batched ``while_loop``), and at the end the lane gets
+    back the state it stopped in, or its best with ``restore_best``. One
+    fetch an epoch (every lane's losses). Returns each lane's (train_hist,
+    val_hist), as long as that lane ran."""
+    k = len(lrs)
+    schedulers = [ReduceLROnPlateau(cfg.plateau_factor, cfg.plateau_patience) for _ in range(k)]
+    best_val = [float("inf")] * k
+    no_improve = [0] * k
+    active = [True] * k
+    hists: List[Tuple[List[float], List[float]]] = [([], []) for _ in range(k)]
+    best = state.snapshot() if cfg.restore_best else None
+    stopped: Optional[Dict[str, Any]] = None  # lanes frozen without restore_best
+
+    for epoch in range(cfg.epochs):
+        steps = [
+            trainer.train_step_lanes(state, batch, lengths, labs, generator,
+                                     cfg.use_length_masking, rates, cfg.remat)
+            for batch, lengths, labs in train_batches(epoch)
+        ]
+        val = _val_losses_lanes(trainer, state, val_batches(), cfg)
+        host = torch.cat([torch.stack(steps), val]).cpu().numpy()  # one fetch
+        train_losses, val_losses = host[: len(steps)], host[len(steps):]
+        new_lrs, improved, done = list(lrs), [], []
+        for i in (i for i in range(k) if active[i]):
+            # a lane's column alone, so the mean adds as the sequential fold's does
+            hists[i][0].append(float(np.mean(np.ascontiguousarray(train_losses[:, i]))))
+            val_loss = float(np.mean(np.ascontiguousarray(val_losses[:, i])))
+            hists[i][1].append(val_loss)
+            if cfg.use_plateau:
+                new_lrs[i] = schedulers[i].step(val_loss, lrs[i])
+            if val_loss < best_val[i]:
+                best_val[i] = val_loss
+                no_improve[i] = 0
+                improved.append(i)
+            else:
+                no_improve[i] += 1
+            if no_improve[i] >= cfg.patience:
+                active[i] = False
+                done.append(i)
+        if new_lrs != lrs:
+            lrs[:] = new_lrs
+            state.lr.copy_(torch.tensor(lrs, dtype=torch.float64))
+        if best is not None and improved:
+            state.copy_lanes(best, state.live(), improved)
+        if done and best is None:
+            if stopped is None:
+                stopped = state.snapshot()
+            else:
+                state.copy_lanes(stopped, state.live(), done)
+        if not any(active):
+            break
+
+    if best is not None:
+        state.copy_lanes(state.live(), best, range(k))
+    elif stopped is not None:
+        state.copy_lanes(state.live(), stopped, [i for i in range(k) if not active[i]])
+    return hists
+
+
+def train_trials_device(
+    trainer: Trainer,
+    train_sequences: Sequence[np.ndarray],
+    train_labels: Sequence[int],
+    val_sequences: Sequence[np.ndarray],
+    val_labels: Sequence[int],
+    cfg: TrainConfig,
+    learning_rates: Sequence[float],
+    dropout_rates: Sequence[float],
+) -> Tuple[LaneTrainState, Deferred]:
+    """Train K trials of ONE architecture together, one lane each.
+
+    The trials differ only in learning rate and dropout rate. Every lane
+    starts from ``trainer.init_state(cfg.seed, cfg.learning_rate)``, draws
+    its dropout masks from the one generator seeded with ``cfg.seed`` (each
+    lane thresholds the same uniforms at its own rate), and takes the same
+    batch plan, on the device-resident path (:func:`_fold_operands`: a
+    resident corpus's views, or one upload of the padded splits). So lane i
+    reproduces :func:`train_model` of trial i. Every train step runs the K
+    models as one (:class:`CNNLSTMLanes`): K3, K4 and dWh at G = 2K.
+
+    Returns ``(states, histories)``: a :class:`LaneTrainState` and a
+    :class:`Deferred` of each lane's (train_hist, val_hist), already on the
+    host. Compose with :meth:`Trainer.eval_logits_trials_deferred`.
+    """
+    if len(learning_rates) != len(dropout_rates):
+        raise ValueError("learning_rates and dropout_rates must align")
+    if cfg.dropout_rate is None:
+        raise ValueError("train_trials_device requires cfg.dropout_rate set")
+    lrs = [float(v) for v in learning_rates]
+    state = LaneTrainState.replicate(trainer.init_state(cfg.seed, cfg.learning_rate),
+                                     trainer._tensor(np.asarray(lrs), torch.float64))
+    rates = trainer._tensor(np.asarray(dropout_rates, np.float64), torch.float64)
+    generator = torch.Generator(device=trainer.device).manual_seed(cfg.seed)
+    (x_tr, len_tr, y_tr, full, rem, x_va, len_va, y_va, va_full, va_rem) = _fold_operands(
+        train_sequences, train_labels, val_sequences, val_labels, cfg, trainer._tensor)
+    hists = _run_epochs_lanes(
+        trainer, state, generator, cfg, rates, lrs,
+        lambda epoch: _gathered(x_tr, len_tr, y_tr, (*full[epoch], rem[epoch])),
+        lambda: _gathered(x_va, len_va, y_va, (*va_full, va_rem)),
+    )
+    return state, Deferred.ready(hists)
 
 
 def evaluate_model_deferred(

@@ -128,6 +128,64 @@ def test_training_kernels_match_plain_versions(cuda_device, t, b, h):
         torch.testing.assert_close(buf, ref_sweep, rtol=0, atol=ATOL)
 
 
+@pytest.mark.parametrize("t,b,h", [(300, 4, 64), (300, 4, 128), (97, 3, 40)])
+def test_kernels_at_sixteen_groups_match_plain_versions(cuda_device, t, b, h):
+    """A round of 8 lanes runs every LSTM kernel at G = 16: K1, K3, K4 (its
+    pre-pass, its sweep) and dWh against their plain versions there."""
+    rng = np.random.default_rng(3)
+    g = 16
+    gates = torch.from_numpy((rng.normal(size=(t, g, b, 4 * h)) * 0.5).astype(np.float32))
+    wh = torch.from_numpy((rng.normal(size=(g, h, 4 * h)) / h**0.5).astype(np.float32))
+    dhout = torch.from_numpy(rng.normal(size=(t, g, b, h)).astype(np.float32))
+    gates, wh, dhout = gates.to(cuda_device), wh.to(cuda_device), dhout.to(cuda_device)
+    hs, cs = lstm_ops.lstm_scan_fwd_res_grouped(gates, wh)
+    ref_hs, ref_cs = lstm_ops.lstm_scan_fwd_res_reference_grouped(gates, wh)
+    torch.testing.assert_close(hs, ref_hs, rtol=0, atol=ATOL)
+    torch.testing.assert_close(cs, ref_cs, rtol=0, atol=ATOL)
+    assert torch.equal(lstm_ops.lstm_scan_grouped(gates, wh), hs)
+    dg, dwh = lstm_ops.lstm_scan_bwd_grouped(gates, hs, cs, wh, dhout)
+    ref_dg, ref_dwh = lstm_ops.lstm_scan_bwd_reference_grouped(gates, hs, cs, wh, dhout)
+    torch.testing.assert_close(dg, ref_dg, rtol=0, atol=ATOL)
+    torch.testing.assert_close(dwh, ref_dwh, rtol=DWH_TOL, atol=DWH_TOL)
+    acts = lstm_ops.lstm_gate_acts_grouped(gates, hs, wh)
+    torch.testing.assert_close(acts, lstm_ops.lstm_gate_acts_reference_grouped(gates, hs, wh),
+                               rtol=0, atol=ATOL)
+    buf = acts.clone()
+    lstm_ops._launch_sweep(buf, cs, wh, dhout)
+    torch.testing.assert_close(
+        buf, lstm_ops.lstm_sweep_from_acts_reference_grouped(acts, cs, wh, dhout),
+        rtol=0, atol=ATOL)
+
+
+def test_lane_trials_on_card_match_cpu_and_launch_once_for_all_lanes(cuda_device):
+    """train_trials_device of 3 lanes (dropout off) on the card and on the
+    CPU from the same weights: histories to 1e-4 relative; one lane step
+    launches K3, K4, its pre-pass and dWh once a layer, K1 once a layer an
+    eval batch."""
+    rng = np.random.default_rng(4)
+    seqs = [rng.normal(size=(int(n), 24)).astype(np.float32) for n in rng.integers(30, 64, 12)]
+    labels = np.arange(12) % 2
+    template = CNNLSTM(input_dim=24, cnn_out_channels=16, lstm_hidden_dim=16, dropout_rate=0.0)
+    template.res_block1.dropout = template.res_block2.dropout = 0.0
+    cfg = loops.TrainConfig(epochs=2, batch_size=4, seed=1, dropout_rate=0.0, use_plateau=False,
+                            restore_best=False)
+    hists = {}
+    for where in (cuda_device, "cpu"):
+        trainer = loops.Trainer(template, adam_eps=1e-3, device=where)
+        counters = (lstm_ops.lstm_scan_fwd_res_grouped, lstm_ops.lstm_scan_bwd_grouped,
+                    lstm_ops.lstm_gate_acts_grouped, lstm_ops.lstm_dwh_grouped,
+                    lstm_ops.lstm_scan_grouped)
+        before = [c.launches for c in counters]
+        _, hist = loops.train_trials_device(trainer, seqs[:8], labels[:8], seqs[8:], labels[8:],
+                                            cfg, [1e-3, 3e-3, 2e-3], [0.0] * 3)
+        hists[str(where)] = hist.result()
+        if where != "cpu":
+            # 2 epochs x 2 steps; 2 epochs x 1 val batch
+            assert [c.launches - n for c, n in zip(counters, before)] == [8, 8, 8, 8, 4]
+    for (th, vh), (cth, cvh) in zip(hists[str(cuda_device)], hists["cpu"]):
+        np.testing.assert_allclose(th + vh, cth + cvh, rtol=1e-4)
+
+
 def test_train_step_on_card_matches_cpu(cuda_device):
     """One Adam step (dropout off) on the card, through K3/K4, and on the CPU
     through the plain versions, from the same weights."""

@@ -17,6 +17,7 @@ histories and stability vectors rtol 1e-4 (the tolerances of one fold in
 metrics equal where the predictions are equal.
 """
 
+import contextlib
 import logging
 
 import numpy as np
@@ -76,8 +77,8 @@ def participants():
     return _participants()
 
 
-@pytest.fixture
-def same_start(monkeypatch):
+@contextlib.contextmanager
+def same_start_patches():
     """Both packages' engines from the same weights, without dropout, with
     ``adam_eps=1e-5``; the JAX engine's trainers kept out of its process-wide
     cache."""
@@ -94,14 +95,21 @@ def same_start(monkeypatch):
             weights = cnn_lstm_state_dict_from_flat(_flat(_jax_init(jtrainer, example, seed, lr)))
         return real_init(self, seed, lr, weights)
 
-    monkeypatch.setattr(loops.Trainer, "init_state", init_from_jax)
-    monkeypatch.setattr(port_model, "dropout", lambda x, rate, generator=None: x)
-    monkeypatch.setattr(dl_cv, "Trainer", lambda model, device: loops.Trainer(
-        model, adam_eps=ADAM_EPS, device=device))
-    monkeypatch.setattr(jax_dl_cv, "_GLOBAL_TRAINERS", {})
-    monkeypatch.setattr(jax_dl_cv, "Trainer",
-                        lambda model: jax_loops.Trainer(model, adam_eps=ADAM_EPS))
-    with _jax_without_dropout():
+    with pytest.MonkeyPatch.context() as mp, _jax_without_dropout():
+        mp.setattr(loops.Trainer, "init_state", init_from_jax)
+        mp.setattr(port_model, "dropout", lambda x, rate, generator=None: x)
+        mp.setattr(port_model, "dropout_lanes", lambda x, rate, lane_dim, generator=None: x)
+        mp.setattr(dl_cv, "Trainer", lambda model, device: loops.Trainer(
+            model, adam_eps=ADAM_EPS, device=device))
+        mp.setattr(jax_dl_cv, "_GLOBAL_TRAINERS", {})
+        mp.setattr(jax_dl_cv, "Trainer",
+                   lambda model: jax_loops.Trainer(model, adam_eps=ADAM_EPS))
+        yield
+
+
+@pytest.fixture
+def same_start():
+    with same_start_patches():
         yield
 
 
@@ -208,13 +216,24 @@ def test_nested_cv_matches_jax(participants, same_start):
     assert weights.shape == (2, 10)
 
 
-def test_trial_batch_above_one_is_not_ported(participants):
+def test_trial_batch_above_one_runs_rounds_of_lanes(participants, monkeypatch):
+    """Both front doors take ``trial_batch`` > 1: each inner fold of a round
+    trains its trials in one ``train_trials_device`` call."""
     seqs, meta = participants
-    with pytest.raises(NotImplementedError, match="lane-batched trials"):
-        dl_cv.run_dl_nested_cv(seqs, meta, trial_batch=2, device="cpu")
+    lanes = []
+    real = dl_cv.train_trials_device
+    monkeypatch.setattr(dl_cv, "train_trials_device", lambda *a, **k: (
+        lanes.append(len(a[6])) or real(*a, **k)))
+    kw = dict(n_splits_outer=2, n_splits_inner=2, epochs=1, inner_epochs=1, batch_size=4,
+              search_space=SPACE, device="cpu")
+    df, preds, weights = dl_cv.run_dl_nested_cv(seqs, meta, n_trials=3, trial_batch=2, **kw)
+    assert lanes == [2, 2, 1, 1] * 2  # rounds of 2 and 1 trials, 2 inner folds each
+    assert len(df) == 2 and weights.shape == (2, 10)
+    lanes.clear()
     X, y, _ = dl_cv.align_sequences_and_labels(seqs, meta)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 4"):
-        dl_cv.nested_cv(X, y, trial_batch=8, device="cpu")
+    results, preds, weights = dl_cv.nested_cv(X, y, n_trials=3, trial_batch=8, **kw)
+    assert lanes == [3, 3] * 2
+    assert all(np.isfinite(p["y_prob"]).all() for p in preds) and len(results) == 2
 
 
 # --- one upload for both engines --------------------------------------------------------
