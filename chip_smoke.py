@@ -94,7 +94,23 @@ without them. Phases, each of which raises on failure:
     schedule a round); no upload beyond labels, rates and batch plans; wall
     per round and per trial beside the sequential nested run's trial, the
     median lane step, peak memory, a lane step at the flagship widths (8
-    lanes, 4 x 4352 x 768) beside 8 sequential batch-4 steps, and its profile.
+    lanes, 4 x 4352 x 768) beside 8 sequential batch-4 steps, and its profile;
+11. mshds-pitch (the pitch half of the MSHDS extractor): 16 speech-like
+    16-bit PCM files of 20–60 s (f0 95–230 Hz, both range groups) in one
+    int16-uploaded corpus buffer, through the JAX extractor's stages: L0
+    (the 10 kHz resample of the buffer, the wide pitch pass, the speech-rate
+    intensity and pitch, one collect), the range groups, L1 per group (main
+    and CPP passes sharing one autocorrelation, the cc pass, intensity,
+    HNR, one collect), one glottal-pulse march over the cc and CPP tracks;
+    counters reset just before and read just after (one K7 and one K6
+    launch per pitch pass, nothing else); first-pass and steady wall time,
+    each level's, the march's steps and host syncs, peak memory; K6/K7 bit
+    for bit against their plain versions on the candidate stacks of a
+    main-pass call and of the largest call, timed there with their bound;
+    the 4 shortest files again on the CPU against the card (pitch frame
+    agreement, mean and semitone spread, intensity and HNR in dB, HNR NaN
+    masks, pulse times, each to a tolerance); the first-half statistics of
+    every file; a profile of one L1 level.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.
@@ -106,6 +122,7 @@ import collections
 import copy
 import dataclasses
 import json
+import math
 import os
 import re
 import statistics
@@ -132,6 +149,11 @@ from robust_speech_analysis_framework_tpu_torch.models.cnn_lstm import (
     stability_probe,
 )
 from robust_speech_analysis_framework_tpu_torch.models.wav2vec2 import Wav2Vec2Config
+from robust_speech_analysis_framework_tpu_torch.ops import framing as mshds_framing
+from robust_speech_analysis_framework_tpu_torch.ops import harmonicity as mshds_harmonicity
+from robust_speech_analysis_framework_tpu_torch.ops import intensity as mshds_intensity
+from robust_speech_analysis_framework_tpu_torch.ops import pitch as mshds_pitch
+from robust_speech_analysis_framework_tpu_torch.ops import pulses as mshds_pulses
 from robust_speech_analysis_framework_tpu_torch.ops.cuda import _build
 from robust_speech_analysis_framework_tpu_torch.ops.cuda import lstm as lstm_ops
 from robust_speech_analysis_framework_tpu_torch.ops.cuda import viterbi as viterbi_ops
@@ -1489,6 +1511,339 @@ def opensmile_phase(dev: torch.device) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# mshds-pitch: the corpus-staged pitch half of the MSHDS extractor
+# ---------------------------------------------------------------------------
+
+MSHDS_FILES, MSHDS_MIN_S, MSHDS_MAX_S = 16, 20.0, 60.0
+MSHDS_F0 = (95.0, 230.0)  # spread over both range groups, (60, 250) and (100, 500)
+MSHDS_CPU_FILES = 4  # the shortest files, run again on the CPU
+MSHDS_UP, MSHDS_DOWN = 5, 8  # 16 kHz → 10 kHz for the second half's buffer
+MSHDS_WIDE = mshds_pitch.PitchParams(time_step=0.005, floor=50, ceiling=600)
+MSHDS_SPEECHRATE = mshds_pitch.PitchParams(
+    time_step=0.02, floor=30, ceiling=450, max_candidates=4, silence_threshold=0.03,
+    voicing_threshold=0.25, octave_cost=0.01, octave_jump_cost=0.35, voiced_unvoiced_cost=0.25)
+# card vs CPU on the shortest files: a pitch frame agrees when both voicing
+# decisions match and a voiced f0 is within MSHDS_F0_REL; cuFFT and pocketfft
+# round r(τ) differently, so near-ties in the path may flip a few frames
+MSHDS_FRAME_SHARE, MSHDS_F0_REL = 0.99, 1e-4
+MSHDS_MEAN_REL, MSHDS_STD_ABS = 1e-4, 1e-3  # mean_hz relative, std_semitones absolute
+MSHDS_DB_TOL = 1e-3  # intensity, dB per frame
+# HNR: 10·log10(r/(1−r)) turns a float32 difference in r into 4.3/(1−r) dB
+MSHDS_HNR_MASK_SHARE, MSHDS_HNR_TOL = 0.999, 0.2
+MSHDS_PULSE_SHARE = 0.99  # pulse times found identically
+
+
+def _range_from_track(track) -> tuple:
+    """The MSHDS pitch range from the wide pass (the JAX package's
+    features/mshds.py:68-79; the port has no MSHDS extractor yet):
+    |z| ≤ 2 outlier filter, mean < 170 Hz → (60, 250) else (100, 500);
+    (75, 500) when nothing is voiced."""
+    v = track.f0[track.f0 > 0]
+    if v.size == 0:
+        return 75, 500
+    z = (v - v.mean()) / max(v.std(), 1e-12)
+    v = v[np.abs(z) <= 2]
+    if v.size == 0:
+        return 75, 500
+    return (60, 250) if v.mean() < 170 else (100, 500)
+
+
+def mshds_l0(buf) -> tuple:
+    """Level 0 of the extractor: the 10 kHz buffer, then the wide pitch
+    pass, the speech-rate intensity and pitch, deferred and collected
+    behind one synchronisation. Returns (buf10k, wide, sr_intensity,
+    sr_pitch)."""
+    buf10k = mshds_framing.resample_buffer(
+        buf, MSHDS_UP, MSHDS_DOWN, preemphasis=math.exp(-2.0 * math.pi * 50.0 / 10000.0))
+    wide, sr_int, sr_pitch = mshds_framing.collect([
+        mshds_pitch.pitch_track_batch(None, SR, MSHDS_WIDE, buf=buf, defer=True),
+        mshds_intensity.intensity_contour_batch(None, SR, minimum_pitch=50, time_step=0.016,
+                                                subtract_mean=True, buf=buf, defer=True),
+        mshds_pitch.pitch_track_batch(None, SR, MSHDS_SPEECHRATE, buf=buf, defer=True),
+    ])
+    return buf10k, wide, sr_int, sr_pitch
+
+
+def mshds_l1(buf, groups: dict) -> dict:
+    """Level 1, per range group (floor, ceiling) → file indices: the main
+    (voicing 0.45) and CPP (voicing 0.3) passes sharing one autocorrelation,
+    the cc pass, intensity and HNR, all collected behind one
+    synchronisation. Returns, by group, (main, cpp, cc, intensity, hnr)."""
+    stages = []
+    for (floor, ceiling), idxs in groups.items():
+        stages += [
+            mshds_pitch.pitch_track_batch_shared(
+                None, SR, [mshds_pitch.PitchParams(time_step=0.005, floor=floor, ceiling=ceiling),
+                           mshds_pitch.PitchParams(time_step=0.005, floor=floor, ceiling=ceiling,
+                                                   voicing_threshold=0.3)],
+                buf=buf, indices=idxs, defer=True),
+            mshds_pitch.pitch_track_batch(
+                None, SR, mshds_pitch.PitchParams(time_step=0.005, floor=floor, ceiling=ceiling,
+                                                  method="cc"),
+                buf=buf, indices=idxs, defer=True),
+            mshds_intensity.intensity_contour_batch(None, SR, minimum_pitch=floor,
+                                                    time_step=0.005, subtract_mean=True, buf=buf,
+                                                    indices=idxs, defer=True),
+            mshds_harmonicity.harmonicity_cc_batch(None, SR, time_step=0.005,
+                                                   minimum_pitch=floor, silence_threshold=0.1,
+                                                   periods_per_window=4.5, buf=buf, indices=idxs,
+                                                   defer=True),
+        ]
+    res = mshds_framing.collect(stages)
+    return {key: (res[4 * g][0], res[4 * g][1], res[4 * g + 1], res[4 * g + 2], res[4 * g + 3])
+            for g, key in enumerate(groups)}
+
+
+def mshds_pitch_half(buf) -> dict:
+    """The pitch half of the MSHDS extractor over a corpus buffer, in the
+    JAX extractor's stages and order (features/mshds.py:261-508): L0, the
+    range groups from the wide pass, L1, then one glottal-pulse march over
+    the cc and CPP tracks together. Returns every result by file, the
+    groups, the 10 kHz buffer and each level's wall time."""
+    n = len(buf.xs)
+    walls = {}
+    t0 = time.perf_counter()
+    buf10k, wide, sr_int, sr_pitch = mshds_l0(buf)
+    walls["L0"] = time.perf_counter() - t0
+    groups = {}
+    for i, track in enumerate(wide):
+        groups.setdefault(_range_from_track(track), []).append(i)
+    t0 = time.perf_counter()
+    by_group = mshds_l1(buf, groups)
+    walls["L1"] = time.perf_counter() - t0
+    main, cpp, cc, inten, hnr = ([None] * n for _ in range(5))
+    for key, idxs in groups.items():
+        for j, i in enumerate(idxs):
+            main[i], cpp[i], cc[i], inten[i], hnr[i] = (r[j] for r in by_group[key])
+    t0 = time.perf_counter()
+    both = mshds_pulses.point_process_cc_batch(None, SR, cc + cpp, buf=buf)
+    walls["pulses"] = time.perf_counter() - t0
+    return {"wide": wide, "sr_int": sr_int, "sr_pitch": sr_pitch, "main": main, "cpp": cpp,
+            "cc": cc, "int": inten, "hnr": hnr, "cc_pulses": both[:n], "cpp_pulses": both[n:],
+            "groups": groups, "buf10k": buf10k, "walls": walls,
+            "march": (mshds_pulses._march_lanes.steps, mshds_pulses._march_lanes.syncs)}
+
+
+def mshds_stats(res: dict, i: int) -> dict:
+    """File i's first-half MSHDS statistics (the extractor's rows at
+    features/mshds.py:419-429) and the speech-rate inputs."""
+    inten, sr_int = res["int"][i], res["sr_int"][i]
+    mn, mx = inten.min_db(), inten.max_db()
+    return {
+        "mean_F0": res["main"][i].mean_hz(), "stdev_F0_Semitone": res["main"][i].std_semitones(),
+        "mean_dB": inten.mean_energy_db(), "range_ratio_dB": mx / mn if mn != 0 else float("nan"),
+        "HNR_dB": res["hnr"][i].mean_db(), "sr_min_dB": sr_int.min_db(),
+        "sr_max_dB": sr_int.max_db(), "sr_q99_dB": sr_int.quantile(0.99),
+        "sr_voiced": float((res["sr_pitch"][i].f0 > 0).mean()),
+        "cc_pulses": len(res["cc_pulses"][i]),
+    }
+
+
+def _frame_agreement(a, b) -> float:
+    voiced = b.f0 > 0
+    agree = ((a.f0 > 0) == voiced) & (~voiced | (np.abs(a.f0 - b.f0) <= MSHDS_F0_REL * b.f0))
+    return float(agree.mean()) if len(agree) else 1.0
+
+
+def mshds_card_vs_cpu(card: dict, cpu: dict) -> None:
+    """The CPU run of the shortest files against the same files on the
+    card, each family held to its tolerance."""
+    worst = collections.defaultdict(lambda: 1.0)
+    err = collections.defaultdict(float)
+    for i in range(MSHDS_CPU_FILES):
+        for fam in ("wide", "sr_pitch", "main", "cpp", "cc"):
+            worst[f"{fam} frame share"] = min(worst[f"{fam} frame share"],
+                                              _frame_agreement(card[fam][i], cpu[fam][i]))
+        a, b = card["main"][i], cpu["main"][i]
+        err["main mean_hz rel"] = max(err["main mean_hz rel"],
+                                      abs(a.mean_hz() - b.mean_hz()) / b.mean_hz())
+        err["main std_semitones"] = max(err["main std_semitones"],
+                                        abs(a.std_semitones() - b.std_semitones()))
+        for fam in ("int", "sr_int"):
+            err[f"{fam} dB"] = max(err[f"{fam} dB"], float(np.abs(
+                card[fam][i].values_db - cpu[fam][i].values_db).max()))
+        a, b = card["hnr"][i].hnr_db, cpu["hnr"][i].hnr_db
+        worst["hnr NaN-mask share"] = min(worst["hnr NaN-mask share"],
+                                          float((np.isnan(a) == np.isnan(b)).mean()))
+        both = np.isfinite(a) & np.isfinite(b)
+        err["hnr dB"] = max(err["hnr dB"], float(np.abs(a[both] - b[both]).max()))
+        for fam in ("cc_pulses", "cpp_pulses"):
+            a, b = card[fam][i], cpu[fam][i]
+            share = float(np.isin(np.round(b, 9), np.round(a, 9)).mean()) if len(b) else 1.0
+            worst[f"{fam} share"] = min(worst[f"{fam} share"], share)
+    log(f"[mshds-pitch] card vs CPU, files 0-{MSHDS_CPU_FILES - 1}: "
+        + ", ".join(f"{k} {v:.6f}" for k, v in {**worst, **err}.items())
+        + f" (tolerances: frame share >= {MSHDS_FRAME_SHARE}, mean_hz {MSHDS_MEAN_REL}, "
+          f"std {MSHDS_STD_ABS}, dB {MSHDS_DB_TOL}, HNR mask >= {MSHDS_HNR_MASK_SHARE}, "
+          f"HNR {MSHDS_HNR_TOL} dB, pulses >= {MSHDS_PULSE_SHARE})")
+    ok = (all(v >= MSHDS_FRAME_SHARE for k, v in worst.items() if "frame" in k)
+          and err["main mean_hz rel"] <= MSHDS_MEAN_REL
+          and err["main std_semitones"] <= MSHDS_STD_ABS
+          and err["int dB"] <= MSHDS_DB_TOL and err["sr_int dB"] <= MSHDS_DB_TOL
+          and worst["hnr NaN-mask share"] >= MSHDS_HNR_MASK_SHARE
+          and err["hnr dB"] <= MSHDS_HNR_TOL
+          and worst["cc_pulses share"] >= MSHDS_PULSE_SHARE
+          and worst["cpp_pulses share"] >= MSHDS_PULSE_SHARE)
+    if not ok:
+        raise AssertionError("the MSHDS pitch half on the card disagrees with the CPU")
+
+
+def mshds_pitch_phase(dev: torch.device, records: dict) -> dict:
+    """The MSHDS pitch half of a 16-file corpus on the card: launches, wall
+    times, K7 on a real slab against its plain version and timed at the
+    largest, the card against the CPU on the shortest files, a profile of
+    one L1 level. Adds K6/K7's times at this path's shape to ``records``
+    and returns the launches."""
+    t0 = time.perf_counter()
+    seconds = np.linspace(MSHDS_MIN_S, MSHDS_MAX_S, MSHDS_FILES)
+    f0s = np.linspace(*MSHDS_F0, MSHDS_FILES)
+    xs = [_speech(s, f0, 100 + i).astype(np.float64) for i, (s, f0) in enumerate(zip(seconds, f0s))]
+    audio_s = sum(len(x) for x in xs) / SR
+    pad16 = max(4096, int(0.14 * SR) + 64)
+    log(f"[mshds-pitch] corpus: {MSHDS_FILES} files, {MSHDS_MIN_S}–{MSHDS_MAX_S} s, f0 "
+        f"{MSHDS_F0[0]}–{MSHDS_F0[1]} Hz, {audio_s:.1f} audio-s of 16-bit PCM, made in "
+        f"{time.perf_counter() - t0:.2f} s; buffer pad {pad16}, align {MSHDS_DOWN}")
+
+    calls = []  # (B, T, C, args) of every path-finder call of the first pass
+    real_path = mshds_pitch.viterbi_path
+
+    def recording_path(*args):
+        calls.append(args)
+        return real_path(*args)
+
+    def whole(device):
+        start = time.perf_counter()
+        buf = mshds_framing.corpus_buffer(xs if device != "cpu" else xs[:MSHDS_CPU_FILES],
+                                          pad=pad16, align=MSHDS_DOWN, device=device)
+        res = mshds_pitch_half(buf)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        res["wall"] = time.perf_counter() - start
+        return buf, res
+
+    counters = _counters()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for fn in counters.values():
+        fn.launches = 0
+    mshds_pitch.viterbi_path = recording_path
+    try:
+        buf, card = whole(dev)
+    finally:
+        mshds_pitch.viterbi_path = real_path
+    launches = {name: fn.launches for name, fn in counters.items()}
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    groups = card["groups"]
+    n_passes = 2 + 3 * len(groups)  # wide + speech-rate; main, CPP and cc per group
+    log(f"[mshds-pitch] range groups {dict((k, len(v)) for k, v in groups.items())}; "
+        f"main-path launches: {launches}; expected {n_passes} of K7 and of K6 (wide, "
+        f"speech-rate, and main, CPP and cc per group), no other kernel")
+    if len(groups) != 2:
+        raise AssertionError(f"the corpus did not form both range groups: {groups}")
+    if not (launches["viterbi_path"] == launches["viterbi_forward_costs"] == n_passes
+            and sum(launches.values()) == 2 * n_passes and len(calls) == n_passes):
+        raise AssertionError("the MSHDS pitch half did not launch K6/K7, and only them, "
+                             "once per pitch pass")
+    steady = [whole(dev)[1] for _ in range(3)]
+    walls = [r["wall"] for r in steady]
+    median = steady[walls.index(statistics.median(walls))]
+    steps, syncs = median["march"]
+    log(f"[mshds-pitch] first pass {card['wall']:.3f} s ({audio_s / card['wall']:.1f} audio-s/s); "
+        f"steady median {median['wall']:.3f} s of {[round(w, 3) for w in walls]} s, "
+        f"{audio_s / median['wall']:.1f} audio-s/s; levels (first / steady median) "
+        + ", ".join(f"{k} {card['walls'][k]:.3f} / {median['walls'][k]:.3f} s"
+                    for k in card["walls"])
+        + f"; upload + host rest {median['wall'] - sum(median['walls'].values()):.3f} s; "
+        f"march {steps} steps, {syncs} host syncs, {median['walls']['pulses']:.3f} s = "
+        f"{median['walls']['pulses'] / median['wall']:.1%} of the phase; peak memory "
+        f"{peak_gib:.3f} GiB")
+
+    # the pulse level split: the march loop alone, synchronised around it,
+    # against the host lane plan, compaction and finalize around it
+    real_march, loop_s = mshds_pulses._march_lanes, []
+
+    def timed_march(*args):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out = real_march(*args)
+        torch.cuda.synchronize()
+        loop_s.append(time.perf_counter() - start)
+        return out
+
+    mshds_pulses._march_lanes = timed_march
+    try:
+        t0 = time.perf_counter()
+        mshds_pulses.point_process_cc_batch(None, SR, median["cc"] + median["cpp"], buf=buf)
+        level_s = time.perf_counter() - t0
+    finally:
+        mshds_pulses._march_lanes = real_march
+    log(f"[mshds-pitch] pulse level again, split: {level_s:.3f} s, of it the march loop "
+        f"{loop_s[0]:.3f} s ({steps} steps, {loop_s[0] / steps * 1e3:.3f} ms a step) and the "
+        f"host lane plan, compaction and finalize {level_s - loop_s[0]:.3f} s")
+
+    b10 = card["buf10k"]
+    expected10k = [-(-len(x) * MSHDS_UP // MSHDS_DOWN) for x in xs]
+    if [len(x) for x in b10.xs] != expected10k or not torch.isfinite(b10.x_cat).all():
+        raise AssertionError("the 10 kHz buffer is misshapen or not finite")
+    for name in ("wide", "main", "cpp", "cc", "int", "hnr", "cc_pulses"):
+        if any(r is None for r in card[name]):
+            raise AssertionError(f"a file has no {name} result")
+    n_frames = sum(len(t.f0) for t in card["main"])
+    voiced = sum(int((t.f0 > 0).sum()) for t in card["main"])
+    pulses_n = sum(len(p) for p in card["cc_pulses"]) + sum(len(p) for p in card["cpp_pulses"])
+    if not (voiced > 0.3 * n_frames and pulses_n > 50 * audio_s
+            and all(np.isfinite(mshds_stats(card, i)["mean_F0"]) for i in range(MSHDS_FILES))):
+        raise AssertionError("the MSHDS pitch half found too little voicing or too few pulses")
+
+    # K7 on real candidate stacks: a slab of the main pass (the first call of
+    # L1), then every K7 call's inputs timed at the largest (the wide pass)
+    largest = max(calls, key=lambda a: a[0].numel())
+    for label, args in (("main-pass slab", calls[2]), ("largest slab", largest)):
+        b, t, c = args[0].shape
+        path = viterbi_ops.viterbi_path(*args)
+        costs = viterbi_ops.viterbi_forward_costs(*args)
+        ref_path, plain_ms = timed_once(lambda: viterbi_ops.viterbi_path_reference(*args))
+        ref_costs, plain_k6_ms = timed_once(
+            lambda: viterbi_ops.viterbi_forward_costs_reference(*args))
+        same = float((path == ref_path).float().mean())
+        log(f"[mshds-pitch] K7 on the {label} B={b} T={t} C={c} (Praat weights w_vv="
+            f"{args[3]:.4f}, w_diff={args[5]:.4f}): paths identical on {same:.6%} of frames, "
+            f"K6 max|dc|={float((costs - ref_costs).abs().max()):.3e} (required: 100 % and 0)")
+        if not (torch.equal(path, ref_path) and torch.equal(costs, ref_costs)):
+            raise AssertionError(f"K6/K7 differ from their plain versions on the {label}")
+    b, t, c = largest[0].shape
+    for name, kernel, is_path, plain in (("viterbi_forward_costs", viterbi_ops.viterbi_forward_costs,
+                                          False, plain_k6_ms),
+                                         ("viterbi_path", viterbi_ops.viterbi_path, True, plain_ms)):
+        ms = cuda_ms(lambda: kernel(*largest), 5)
+        bound, bound_by = viterbi_bound_ms(b, t, c, is_path)
+        records[name]["mshds"] = {"shape": f"B={b} T={t} C={c}", "ms": ms, "plain_ms": plain,
+                                  "bound_ms": bound, "bound_by": bound_by, "library_ms": None}
+        log(f"[mshds-pitch] {name} at the largest slab B={b} T={t} C={c}: kernel {ms:.4f} ms "
+            f"({ms / t * 1e3:.4f} us a step), plain {plain:.4f} ms, bound {bound:.6f} ms "
+            f"({bound_by})")
+
+    t0 = time.perf_counter()
+    _, cpu = whole("cpu")
+    log(f"[mshds-pitch] the {MSHDS_CPU_FILES} shortest files on the CPU: "
+        f"{time.perf_counter() - t0:.3f} s, range groups "
+        f"{dict((k, len(v)) for k, v in cpu['groups'].items())}")
+    for i in range(MSHDS_CPU_FILES):
+        key = [k for k, v in groups.items() if i in v]
+        if key != [k for k, v in cpu["groups"].items() if i in v]:
+            raise AssertionError(f"file {i} fell into another range group on the CPU")
+    mshds_card_vs_cpu(card, cpu)
+    for i in range(MSHDS_FILES):
+        stats = mshds_stats(card, i)
+        cpu_stats = mshds_stats(cpu, i) if i < MSHDS_CPU_FILES else None
+        log(f"[mshds-pitch] file {i:2d} ({seconds[i]:.1f} s, f0 {f0s[i]:.1f} Hz): "
+            + ", ".join(f"{k} {v:.4f}" + (f" / CPU {cpu_stats[k]:.4f}" if cpu_stats else "")
+                        for k, v in stats.items()))
+
+    profile_device("one MSHDS L1 level (both range groups)", lambda: mshds_l1(buf, groups), 12)
+    return launches
+
+
 def ptxas_report(text: str) -> list:
     """One line per kernel of ptxas's verbose output: its name with the
     integer template arguments, its registers and its spill bytes."""
@@ -1537,6 +1892,7 @@ def run(dev: torch.device, smi: str) -> None:
     cv, cv_lanes = cv_phase(dev, streaming_step_ms)
     parity_phase(dev)
     opensmile = opensmile_phase(dev)
+    mshds = mshds_pitch_phase(dev, records)
 
     kernels = []
     for name, source, replaces in (
@@ -1550,7 +1906,8 @@ def run(dev: torch.device, smi: str) -> None:
     ):
         rec = records[name]
         by_path = {"serving": serving[name], "training": training[name], "cv": cv[name],
-                   "cv-lanes": cv_lanes[name], "opensmile": opensmile[name]}
+                   "cv-lanes": cv_lanes[name], "opensmile": opensmile[name],
+                   "mshds-pitch": mshds[name]}
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(by_path.values()),
@@ -1559,7 +1916,8 @@ def run(dev: torch.device, smi: str) -> None:
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec["library_ms"], "shape": rec["shape"],
             "on_main_path": name != "lstm_scan",
-            **{k: rec[k] for k in ("serving", "praat", "sweep_ms", "split", "lanes") if k in rec},
+            **{k: rec[k] for k in ("serving", "praat", "mshds", "sweep_ms", "split", "lanes")
+               if k in rec},
         })
     log(f"[card] {smi}")
     print(json.dumps({"kernels": kernels}))

@@ -8,12 +8,14 @@ hand-written CUDA kernel under ``csrc/``, built with nvcc at first use; what
 XLA computed becomes plain PyTorch.
 
 Ported so far: the serving path, CNN-LSTM training and its cross-validation
-engines, and openSMILE-912 extraction:
+engines, openSMILE-912 extraction, and the pitch half of MSHDS-25:
 
-  audio/      WAV IO, polyphase resampling (numpy), the STFT/mel/MFCC front end
+  audio/      WAV IO, polyphase resampling (torch and numpy), the STFT/mel/MFCC
+              front end
   data/       bucketed batching (numpy)
-  ops/        spectral LLDs, functionals, SHS pitch, the host period march,
-              deferred results (framing.py)
+  ops/        spectral LLDs, functionals, SHS pitch, the host period march; the
+              corpus buffer and deferred results (framing.py), Praat pitch,
+              intensity, harmonicity and the glottal-pulse march
   ops/cuda/   the LSTM kernels (csrc/lstm_scan.cu, csrc/lstm_train.cu) and the
               Viterbi path finder (csrc/viterbi.cu), each with its plain version
   models/     CNN-LSTM, Wav2Vec2-base, weight carry from the JAX package

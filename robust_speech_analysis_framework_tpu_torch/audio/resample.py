@@ -1,9 +1,11 @@
-"""Rational-ratio polyphase resampling on the host (numpy).
+"""Rational-ratio polyphase resampling: on any device, and on the host.
 
-Copy of the numpy path of ``robust_speech_analysis_framework_tpu/audio/
-resample.py`` (``_kaiser_beta``, ``design_lowpass``, ``_aligned_filter``,
-``resample_poly_np``): a Kaiser-windowed sinc low-pass, aligned like
-``scipy.signal.resample_poly``.
+Counterpart of ``robust_speech_analysis_framework_tpu/audio/resample.py``'s
+polyphase half: a Kaiser-windowed sinc low-pass (``design_lowpass``,
+aligned by ``_aligned_filter`` like ``scipy.signal.resample_poly``), applied
+by :func:`resample_poly` as one strided ``conv1d`` over the zero-stuffed
+signal on the tensor's device, and by :func:`resample_poly_np` in numpy
+float64 on the host.
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ import math
 from functools import lru_cache
 
 import numpy as np
+import torch
 
 
 def _kaiser_beta(atten_db: float) -> float:
@@ -57,6 +60,36 @@ def _aligned_filter(up: int, down: int, half_width: int):
     n_pre_remove = (half_len + n_pre_pad) // down
     h = np.concatenate([np.zeros(n_pre_pad), h])
     return h, n_pre_remove
+
+
+def _upfirdn_conv(x: torch.Tensor, h: np.ndarray, up: int, down: int) -> torch.Tensor:
+    """upfirdn(h, x, up, down) of ``x`` (..., T) as one convolution: the
+    zero-stuffed signal correlated with the flipped filter at stride
+    ``down``, zero-padded by len(h) − 1 on both sides (the full
+    convolution, sampled from phase 0)."""
+    batch_shape, t = x.shape[:-1], x.shape[-1]
+    stuffed = x.new_zeros(int(np.prod(batch_shape, dtype=np.int64)), 1, (t - 1) * up + 1)
+    stuffed[:, 0, ::up] = x.reshape(-1, t)
+    rhs = torch.from_numpy(np.ascontiguousarray(h[::-1])).to(x).reshape(1, 1, -1)
+    out = torch.nn.functional.conv1d(stuffed, rhs, stride=down, padding=len(h) - 1)
+    n_keep = -(-((t - 1) * up + len(h)) // down)
+    return out[..., :n_keep].reshape(*batch_shape, -1)
+
+
+def resample_poly(x: torch.Tensor, up: int, down: int, half_width: int = 10) -> torch.Tensor:
+    """Polyphase resample ``x`` (..., T) by rational factor up/down on its
+    device; output length ``ceil(T * up / down)``."""
+    g = math.gcd(up, down)
+    up, down = up // g, down // g
+    if up == down == 1:
+        return x
+    h, n_pre_remove = _aligned_filter(up, down, half_width)
+    n_out = -(-x.shape[-1] * up // down)
+    full = _upfirdn_conv(x, h, up, down)
+    pad_needed = n_pre_remove + n_out - full.shape[-1]
+    if pad_needed > 0:
+        full = torch.nn.functional.pad(full, (0, pad_needed))
+    return full[..., n_pre_remove : n_pre_remove + n_out]
 
 
 def resample_poly_np(x: np.ndarray, up: int, down: int, half_width: int = 10) -> np.ndarray:

@@ -1,4 +1,5 @@
-"""Spectral transforms on ``torch.fft`` (cuFFT on the card).
+"""Spectral transforms on ``torch.fft`` (cuFFT on the card): power and
+magnitude spectra, autocorrelation (Wiener–Khinchin) and cross-correlation.
 
 The JAX package also ran these as matrix products over a cos/sin basis,
 for TPUs without an FFT operation; the port needs no such path.
@@ -26,3 +27,17 @@ def autocorr_via_power(power: torch.Tensor, n_fft: int, n_lags: int) -> torch.Te
     """Circular autocorrelation r(τ), τ ∈ [0, n_lags), from an rfft power
     spectrum of length n_fft//2+1 (Wiener–Khinchin)."""
     return torch.fft.irfft(power, n_fft)[..., :n_lags]
+
+
+def autocorr(x: torch.Tensor, n_fft: int, n_lags: int) -> torch.Tensor:
+    """r(τ), τ ∈ [0, n_lags), of the (zero-padded) signal along the last axis."""
+    return autocorr_via_power(rfft_power(x, n_fft), n_fft, n_lags)
+
+
+def cross_corr(base: torch.Tensor, ext: torch.Tensor, n_fft: int, n_lags: int) -> torch.Tensor:
+    """corr(τ) = Σ_t base[t]·ext[t+τ] for τ ∈ [0, n_lags) along the last axis
+    (both zero-padded to n_fft ≥ len(ext) + len(base), so no lag in the band
+    wraps around)."""
+    fb = torch.fft.rfft(base, n_fft)
+    fe = torch.fft.rfft(ext, n_fft)
+    return torch.fft.irfft(fb.conj() * fe, n_fft)[..., :n_lags]

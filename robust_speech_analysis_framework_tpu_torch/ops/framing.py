@@ -1,20 +1,28 @@
-"""Results left on the device until the caller asks for them.
+"""The shared corpus buffer, frame gathers, and results left on the device.
 
-Counterpart of ``Deferred`` and ``collect`` in
-``robust_speech_analysis_framework_tpu/ops/framing.py`` (the corpus buffer
-and the frame gathers of that module come with the MSHDS extractor). A
-``Deferred`` holds device tensors whose kernels are already queued, and a
-finalizer that turns their host copies into the operation's return value.
-:func:`collect` copies a whole list of them to the host behind ONE
-synchronisation, so a CV engine that has queued every fold's eval pass
-waits for the card once, not once per fold.
+Counterpart of ``robust_speech_analysis_framework_tpu/ops/framing.py``:
+
+* :class:`CorpusBuffer` / :func:`corpus_buffer`: every file of a corpus
+  concatenated, zero-padded and uploaded once, shared by every batched
+  analysis (pitch, intensity, harmonicity, pulses);
+* :func:`gather_frames`: (N,) start indices → (N, win) frames, one index
+  gather on the device (the JAX package's row gather + shift select was a
+  TPU lowering and has no counterpart);
+* :func:`resample_buffer`: the whole buffer resampled on the device;
+* :class:`Deferred` / :func:`collect`: a result whose kernels are queued,
+  fetched with others behind ONE synchronisation, so a level of independent
+  stages waits for the card once, not once per stage.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, List
+import math
+from typing import Any, Callable, List, NamedTuple
 
+import numpy as np
 import torch
+
+from ..device import DeviceLike, resolve_device
 
 
 def _map_tensors(tree: Any, fn: Callable[[torch.Tensor], Any]) -> Any:
@@ -72,3 +80,107 @@ def collect(deferreds: List[Deferred]) -> List[Any]:
     host = _to_host([d.arrays for d in deferreds])
     return [d.finalize(h) for d, h in zip(deferreds, host)]
 
+
+def gather_frames(x_cat: torch.Tensor, starts: torch.Tensor, win_len: int) -> torch.Tensor:
+    """(N,) start indices → (N, win_len) frames ``x_cat[s : s + win_len]``.
+
+    Every start must leave ``win_len`` samples inside ``x_cat``: the JAX
+    package's CPU path clamps a start that runs past the end and its TPU
+    path reads zeros there, so its callers (and these) raise first when a
+    window or lag extension exceeds the buffer's pad.
+    """
+    offsets = torch.arange(win_len, device=x_cat.device, dtype=starts.dtype)
+    return x_cat[starts[:, None] + offsets]
+
+
+def rows32_gather(x32: torch.Tensor, starts: torch.Tensor, win_len: int) -> torch.Tensor:
+    """:func:`gather_frames` over a buffer held as (-1, 32) rows, zero-padded
+    at least ``win_len`` samples past the largest start (the pulse march's
+    form of the waveform)."""
+    return gather_frames(x32.reshape(-1), starts, win_len)
+
+
+class CorpusBuffer(NamedTuple):
+    """The corpus waveform concatenation, uploaded to the device ONCE and
+    shared by every batched analysis stage.
+
+    Each file is zero-padded by ``pad`` samples (at least) inside the
+    concatenation, so an analysis whose window extends at most ``pad``
+    samples past a file's end (window + largest lag) reads nothing of the
+    next file.
+    """
+
+    xs: List[np.ndarray]  # original host waveforms (float64)
+    offsets: np.ndarray  # (n_files,) start of each file in x_cat
+    pad: int
+    x_cat: torch.Tensor  # device-resident concatenation (float32)
+
+
+def corpus_buffer(xs, pad: int = 4096, align: int = 8, device: DeviceLike = "cuda") -> CorpusBuffer:
+    """Build and upload the shared corpus concatenation to ``device``.
+
+    ``align`` rounds each file's padded extent up to a multiple, so file
+    offsets stay on rational-resampling phase boundaries (see
+    :func:`resample_buffer`). A 16-bit-PCM corpus (every sample n/32768)
+    goes up as int16, half the bytes, and is scaled by 2^-15 on the device:
+    exact in float32, so ``x_cat`` equals the float32 upload bit for bit.
+    """
+    dev = resolve_device(device)
+    xs = [np.asarray(x, dtype=np.float64).reshape(-1) for x in xs]
+    offsets = np.zeros(len(xs), np.int64)
+    pieces = []
+    offset = 0
+    for i, x in enumerate(xs):
+        offsets[i] = offset
+        extra = (-(len(x) + pad)) % align
+        pieces.append(np.pad(x, (0, pad + extra)).astype(np.float32))
+        offset += len(x) + pad + extra
+    cat = np.concatenate(pieces) if pieces else np.zeros(0, np.float32)
+    q = cat * 32768.0
+    qi = np.round(q)
+    if cat.size and abs(float(qi.max(initial=0.0))) <= 32767 \
+            and abs(float(qi.min(initial=0.0))) <= 32768 \
+            and bool((q == qi).all()):
+        i16 = torch.from_numpy(qi.astype(np.int16)).to(dev)
+        x_cat = i16.to(torch.float32) * (1.0 / 32768.0)
+    else:
+        x_cat = torch.from_numpy(cat).to(dev)
+    return CorpusBuffer(xs, offsets, pad, x_cat)
+
+
+class _LengthOnly(np.ndarray):
+    """Zero-filled stand-in carrying only a length (device-resident corpora
+    whose host copies were never materialized)."""
+
+
+def _length_view(n: int) -> np.ndarray:
+    return np.zeros(max(int(n), 0), np.float64).view(_LengthOnly)
+
+
+def resample_buffer(buf: CorpusBuffer, up: int, down: int, preemphasis: float = 0.0) -> CorpusBuffer:
+    """Rational-resample a whole corpus buffer on its device (one strided
+    convolution over the concatenation), with optional preemphasis.
+
+    Every file offset must be divisible by ``down`` (``corpus_buffer(...,
+    align=down·k)``): output sample ``o`` sits at input position
+    ``o·down/up``, so file i's region starts at ``offsets[i]·up/down``
+    exactly, and the pad zeros between files make each region equal to
+    resampling that file alone. The returned buffer's ``xs`` are zero-filled
+    length-only views: their lengths give frame grids, their samples are
+    not the audio. The preemphasis sees a zero before sample 0 of the
+    buffer (x[0] − k·0), as in the JAX package.
+    """
+    from ..audio.resample import resample_poly
+
+    g = math.gcd(up, down)
+    up, down = up // g, down // g
+    for off in buf.offsets:
+        if off % down:
+            raise ValueError("buffer offsets not aligned to resample ratio")
+    y = resample_poly(buf.x_cat, up, down)
+    if preemphasis > 0.0:
+        y = y - preemphasis * torch.cat([y.new_zeros(1), y[:-1]])
+    new_offsets = (buf.offsets * up) // down
+    new_xs = [_length_view(-(-len(x) * up // down)) for x in buf.xs]
+    new_pad = (buf.pad * up) // down - up  # conservative: resample tail blur
+    return CorpusBuffer(new_xs, new_offsets, new_pad, y)

@@ -310,3 +310,65 @@ def test_opensmile_on_card_matches_cpu(cuda_device):
     assert np.median(rel) < 1e-5
     assert rel[:, ~vq].mean() < 2e-4
     assert rel[:, vq].mean() < 5e-2
+
+
+def _mshds_speech(seconds: float, f0: float, seed: int) -> np.ndarray:
+    """Speech-like 16-bit PCM (11 harmonics, 3 Hz vibrato, syllable gating)."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(seconds * 16000)) / 16000
+    phase = f0 * (t + 0.01 * (1 - np.cos(2 * np.pi * 3 * t)) / (2 * np.pi * 3))
+    v = sum(np.sin(2 * np.pi * k * phase) / k for k in range(1, 12))
+    x = 0.3 * np.where((t % 0.6) < 0.42, 1.0, 0.02) * v / np.abs(v).max()
+    x = x + 0.002 * rng.normal(size=len(t))
+    return np.clip(np.round(x * 32768.0), -32768, 32767) / 32768.0
+
+
+def test_mshds_pitch_half_on_card_matches_cpu(cuda_device):
+    """The corpus buffer (bit-equal), the ac and cc pitch passes (one K7
+    launch per variant; frames agree on voicing and f0 within 1e-4 on 99 %),
+    intensity (1e-3 dB), HNR (NaN masks equal, 0.05 dB) and the pulse march
+    (99 % of the pulses identical) on the card against the CPU."""
+    from robust_speech_analysis_framework_tpu_torch.ops import (
+        framing,
+        harmonicity,
+        intensity,
+        pitch,
+        pulses,
+    )
+    from robust_speech_analysis_framework_tpu_torch.ops.cuda import viterbi
+
+    xs = [_mshds_speech(2.0, 100, 0), _mshds_speech(3.1, 200, 1), _mshds_speech(0.005, 150, 2)]
+    bufs = {dev: framing.corpus_buffer(xs, pad=4096, align=8, device=dev)
+            for dev in (cuda_device, "cpu")}
+    assert torch.equal(bufs[cuda_device].x_cat.cpu(), bufs["cpu"].x_cat)
+    variants = [pitch.PitchParams(time_step=0.005, floor=60, ceiling=250),
+                pitch.PitchParams(time_step=0.005, floor=60, ceiling=250, voicing_threshold=0.3)]
+    cc = pitch.PitchParams(time_step=0.005, floor=60, ceiling=250, method="cc")
+    out = {}
+    for dev, buf in bufs.items():
+        before = viterbi.viterbi_path.launches
+        out[dev] = (pitch.pitch_track_batch_shared(None, 16000, variants, buf=buf)
+                    + [pitch.pitch_track_batch(None, 16000, cc, buf=buf)])
+        assert viterbi.viterbi_path.launches - before == (3 if dev == cuda_device else 0)
+        out[dev] += [
+            intensity.intensity_contour_batch(None, 16000, minimum_pitch=60, time_step=0.005,
+                                              buf=buf),
+            harmonicity.harmonicity_cc_batch(None, 16000, time_step=0.005, minimum_pitch=60,
+                                             buf=buf),
+            pulses.point_process_cc_batch(None, 16000, out[dev][2] + out[dev][1], buf=buf),
+        ]
+    card, cpu = out[cuda_device], out["cpu"]
+    for tracks_card, tracks_cpu in zip(card[:3], cpu[:3]):
+        for a, b in zip(tracks_card, tracks_cpu):
+            voiced = b.f0 > 0
+            agree = ((a.f0 > 0) == voiced) & (~voiced | (np.abs(a.f0 - b.f0) <= 1e-4 * b.f0))
+            assert not len(b.f0) or agree.mean() >= 0.99
+    for a, b in zip(card[3], cpu[3]):
+        np.testing.assert_allclose(a.values_db, b.values_db, rtol=0, atol=1e-3)
+    for a, b in zip(card[4], cpu[4]):
+        np.testing.assert_array_equal(np.isnan(a.hnr_db), np.isnan(b.hnr_db))
+        both = np.isfinite(b.hnr_db)
+        np.testing.assert_allclose(a.hnr_db[both], b.hnr_db[both], rtol=0, atol=0.05)
+    for a, b in zip(card[5], cpu[5]):
+        assert not len(b) or np.isin(np.round(b, 9), np.round(a, 9)).mean() >= 0.99
+    assert sum(len(p) for p in card[5]) > 500

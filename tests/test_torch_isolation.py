@@ -21,6 +21,15 @@ from robust_speech_analysis_framework_tpu_torch.features.opensmile import OpenSm
 from robust_speech_analysis_framework_tpu_torch.features.wav2vec2 import Wav2Vec2Extractor
 from robust_speech_analysis_framework_tpu_torch.models.cnn_lstm import build_cnn_lstm
 from robust_speech_analysis_framework_tpu_torch.models.wav2vec2 import Wav2Vec2Config
+from robust_speech_analysis_framework_tpu_torch.ops.framing import corpus_buffer
+from robust_speech_analysis_framework_tpu_torch.ops.harmonicity import harmonicity_cc_batch
+from robust_speech_analysis_framework_tpu_torch.ops.intensity import intensity_contour_batch
+from robust_speech_analysis_framework_tpu_torch.ops.pitch import (
+    PitchParams,
+    PitchTrack,
+    pitch_track_batch,
+)
+from robust_speech_analysis_framework_tpu_torch.ops.pulses import point_process_cc_batch
 from robust_speech_analysis_framework_tpu_torch.serving import Predictor
 from robust_speech_analysis_framework_tpu_torch.train.loops import (
     DeviceCorpus,
@@ -61,7 +70,7 @@ def test_port_imports_no_jax():
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 39  # every module of the four slices was imported
+    assert n_modules >= 43  # every module of the port so far was imported
 
 
 def test_chip_smoke_fails_without_a_card():
@@ -82,9 +91,12 @@ def _tiny_cv_inputs():
 
 @pytest.mark.parametrize(
     "entry", ["extractor", "cnn_lstm", "predictor", "trainer", "device", "opensmile",
-              "device_corpus", "resident_corpus", "standard_cv", "nested_cv"])
+              "device_corpus", "resident_corpus", "standard_cv", "nested_cv", "corpus_buffer",
+              "pitch_batch", "intensity_batch", "harmonicity_batch", "pulses_batch"])
 def test_entry_points_default_to_cuda(entry):
     hp = {"learning_rate": 1e-3, "cnn_out_channels": 8, "lstm_hidden_dim": 8}
+    wave = [np.sin(np.arange(4000) / 10.0)]  # 0.25 s at 16 kHz
+    track = PitchTrack(np.arange(0.02, 0.23, 0.005), np.full(43, 160.0), np.ones(43))
     build = {
         "extractor": lambda: Wav2Vec2Extractor(
             config=Wav2Vec2Config(**SMALL), allow_random_init=True).device,
@@ -108,6 +120,16 @@ def test_entry_points_default_to_cuda(entry):
             *_tiny_cv_inputs(), n_splits_outer=2, n_splits_inner=2, n_trials=1, epochs=1,
             inner_epochs=1, search_space={k: ("categorical", [v]) for k, v in hp.items()},
         ) else None,
+        # the MSHDS ops: the buffer, and the batch ops given waveforms (no buffer)
+        "corpus_buffer": lambda: corpus_buffer(wave).x_cat.device,
+        "pitch_batch": lambda: torch.device("cuda") if pitch_track_batch(
+            wave, 16000, PitchParams()) else None,
+        "intensity_batch": lambda: torch.device("cuda") if intensity_contour_batch(
+            wave, 16000) else None,
+        "harmonicity_batch": lambda: torch.device("cuda") if harmonicity_cc_batch(
+            wave, 16000) else None,
+        "pulses_batch": lambda: torch.device("cuda") if point_process_cc_batch(
+            wave, 16000, [track]) else None,
     }[entry]
     if torch.cuda.is_available():
         assert build().type == "cuda"
