@@ -5,11 +5,15 @@
 Needs one CUDA device and ``nvcc`` (CUDA_HOME or PATH); exits non-zero
 without them. Phases, each of which raises on failure:
 
-1. card: name and power limit (nvidia-smi), TF32 switched off for every
-   phase (matmul and cuDNN), so the card computes in full float32 like the
-   CPU it is compared with;
+1. card: name and power limit (nvidia-smi);
 2. build: every kernel under robust_speech_analysis_framework_tpu_torch/csrc
-   compiled with nvcc (ptxas report printed);
+   compiled with nvcc (ptxas report printed); then, under torch's default
+   flags (cuDNN convolutions allowed TF32), the flagship logits of two rows
+   and resample_poly of a 60 s file against the CPU, with the flags the
+   same after each call (the port runs its convolutions in IEEE float32
+   itself); from here on TF32 is switched off for every phase (matmul and
+   cuDNN), so the card computes in full float32 like the CPU it is
+   compared with;
 3. kernels: K1 (lstm_scan_grouped) and K2 (lstm_scan) against their plain
    PyTorch versions on the card at a ragged shape, the flagship batch shape
    and the serving shape, with their times (and microseconds a step of the
@@ -95,22 +99,22 @@ without them. Phases, each of which raises on failure:
     per round and per trial beside the sequential nested run's trial, the
     median lane step, peak memory, a lane step at the flagship widths (8
     lanes, 4 x 4352 x 768) beside 8 sequential batch-4 steps, and its profile;
-11. mshds-pitch (the pitch half of the MSHDS extractor): 16 speech-like
-    16-bit PCM files of 20–60 s (f0 95–230 Hz, both range groups) in one
-    int16-uploaded corpus buffer, through the JAX extractor's stages: L0
-    (the 10 kHz resample of the buffer, the wide pitch pass, the speech-rate
-    intensity and pitch, one collect), the range groups, L1 per group (main
-    and CPP passes sharing one autocorrelation, the cc pass, intensity,
-    HNR, one collect), one glottal-pulse march over the cc and CPP tracks;
-    counters reset just before and read just after (one K7 and one K6
-    launch per pitch pass, nothing else); first-pass and steady wall time,
-    each level's, the march's steps and host syncs, peak memory; K6/K7 bit
-    for bit against their plain versions on the candidate stacks of a
-    main-pass call and of the largest call, timed there with their bound;
-    the 4 shortest files again on the CPU against the card (pitch frame
-    agreement, mean and semitone spread, intensity and HNR in dB, HNR NaN
-    masks, pulse times, each to a tolerance); the first-half statistics of
-    every file; a profile of one L1 level.
+11. mshds (the whole MSHDS-25 extractor): 16 speech-like 16-bit PCM files
+    of 20–60 s (f0 95–230 Hz, both range groups) through the port's entry
+    point ``features.mshds.extract_mshds_arrays`` on the card; counters reset just before and read just after (one K7 and
+    one K6 launch per pitch pass: wide, speech-rate, and main, CPP and cc in
+    each range group, nothing else); first-pass and steady wall time (the
+    same bits every pass), each level's (L0, L1, pulses, tail, host rows:
+    timed by wrapping the calls that end them), the march's steps and host
+    syncs, peak memory; K6/K7 bit for bit against their plain versions on
+    the candidate stacks of a main-pass call and of the largest call, timed
+    there with their bound; the 4 shortest files again on the CPU against
+    the card, all 25 features each to its tolerance (MSHDS_TOL) with equal
+    NaN masks, printed card beside CPU, and the moments stage alone on the
+    same voiced frames card vs CPU; one profiled extraction: each tail
+    stage's device time (moments, formants with Durand–Kerner's share,
+    LTAS, CPPS), launches and host time, and the device's idle share of
+    the tail's window.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.
@@ -122,7 +126,6 @@ import collections
 import copy
 import dataclasses
 import json
-import math
 import os
 import re
 import statistics
@@ -149,11 +152,11 @@ from robust_speech_analysis_framework_tpu_torch.models.cnn_lstm import (
     stability_probe,
 )
 from robust_speech_analysis_framework_tpu_torch.models.wav2vec2 import Wav2Vec2Config
-from robust_speech_analysis_framework_tpu_torch.ops import framing as mshds_framing
-from robust_speech_analysis_framework_tpu_torch.ops import harmonicity as mshds_harmonicity
-from robust_speech_analysis_framework_tpu_torch.ops import intensity as mshds_intensity
+from robust_speech_analysis_framework_tpu_torch.features import mshds as mshds_mod
+from robust_speech_analysis_framework_tpu_torch.ops import formants as mshds_formants
 from robust_speech_analysis_framework_tpu_torch.ops import pitch as mshds_pitch
 from robust_speech_analysis_framework_tpu_torch.ops import pulses as mshds_pulses
+from robust_speech_analysis_framework_tpu_torch.ops import spectral as mshds_spectral
 from robust_speech_analysis_framework_tpu_torch.ops.cuda import _build
 from robust_speech_analysis_framework_tpu_torch.ops.cuda import lstm as lstm_ops
 from robust_speech_analysis_framework_tpu_torch.ops.cuda import viterbi as viterbi_ops
@@ -168,6 +171,7 @@ KERNEL_TOL = 1e-5  # fp32 kernel vs fp32 plain version: summation order only
 DWH_TOL = 1e-4  # dWh sums T·B = 32k products per element: relative to its scale
 FLAGSHIP_TOL = 1e-4  # logits after convs + 2 biLSTM layers over 2240 steps
 SERVING_TOL = 1e-3  # logits after a 12-layer random-init encoder + classifier
+RESAMPLE_TOL = 1e-5  # resample_poly of 16-bit PCM: a 161-tap float32 filter, summation order
 # one train step card vs CPU: loss and BN statistics absolute; gradients
 # relative to each tensor's largest element; parameters after one Adam step
 # of lr 1e-3 absolute (1 % of a step). Adam's first step is lr·g/(|g| + eps):
@@ -1512,215 +1516,177 @@ def opensmile_phase(dev: torch.device) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# mshds-pitch: the corpus-staged pitch half of the MSHDS extractor
+# mshds: the whole MSHDS-25 extractor (features/mshds.py)
 # ---------------------------------------------------------------------------
 
 MSHDS_FILES, MSHDS_MIN_S, MSHDS_MAX_S = 16, 20.0, 60.0
 MSHDS_F0 = (95.0, 230.0)  # spread over both range groups, (60, 250) and (100, 500)
 MSHDS_CPU_FILES = 4  # the shortest files, run again on the CPU
-MSHDS_UP, MSHDS_DOWN = 5, 8  # 16 kHz → 10 kHz for the second half's buffer
-MSHDS_WIDE = mshds_pitch.PitchParams(time_step=0.005, floor=50, ceiling=600)
-MSHDS_SPEECHRATE = mshds_pitch.PitchParams(
-    time_step=0.02, floor=30, ceiling=450, max_candidates=4, silence_threshold=0.03,
-    voicing_threshold=0.25, octave_cost=0.01, octave_jump_cost=0.35, voiced_unvoiced_cost=0.25)
-# card vs CPU on the shortest files: a pitch frame agrees when both voicing
-# decisions match and a voiced f0 is within MSHDS_F0_REL; cuFFT and pocketfft
-# round r(τ) differently, so near-ties in the path may flip a few frames
-MSHDS_FRAME_SHARE, MSHDS_F0_REL = 0.99, 1e-4
-MSHDS_MEAN_REL, MSHDS_STD_ABS = 1e-4, 1e-3  # mean_hz relative, std_semitones absolute
-MSHDS_DB_TOL = 1e-3  # intensity, dB per frame
-# HNR: 10·log10(r/(1−r)) turns a float32 difference in r into 4.3/(1−r) dB
-MSHDS_HNR_MASK_SHARE, MSHDS_HNR_TOL = 0.999, 0.2
-MSHDS_PULSE_SHARE = 0.99  # pulse times found identically
+# card vs CPU, feature by feature: (rtol, atol). The pitch passes agree by
+# frame share (cuFFT and pocketfft round r(τ) apart, so near-ties in the path
+# may flip a frame), and every later feature reads those tracks or the
+# pulses marched on them; HNR's 10·log10(r/(1−r)) and the CPPS log-cepstrum
+# amplify float32 differences into hundredths of a dB
+MSHDS_TOL = {
+    **dict.fromkeys(mshds_mod._TEMPORAL, (1e-6, 0.0)),
+    "mean_F0": (1e-4, 0.0), "stdev_F0_Semitone": (0.0, 1e-3),
+    "mean_dB": (1e-4, 0.0), "range_ratio_dB": (1e-4, 0.0), "HNR_dB": (0.0, 0.05),
+    "Spectral_Slope": (1e-3, 0.0), "Spectral_Tilt": (1e-3, 0.0),
+    "Cepstral_Peak_Prominence": (0.0, 0.05),
+    **{f"{s}_{k}_Loc": (1e-3, 0.0) for s in ("mean", "std") for k in ("F1", "B1", "F2", "B2")},
+    # means over the frames the main pitch track calls voiced: one frame's
+    # voicing flipped between card and CPU, among ~3,000 voiced ones, moves
+    # each mean by up to ~1/3,000 of that frame's distance from it
+    **dict.fromkeys(["Spectral_Gravity", "Spectral_Std_Dev", "Spectral_Skewness",
+                     "Spectral_Kurtosis"], (5e-3, 0.0)),
+}
+# the moments stage alone, card against CPU on the same voiced frames (the
+# recipe's open syllable gates): float32 spectra summed in another order
+MSHDS_MOMENTS_STAGE_RTOL = 1e-4
+# the tail's stages, each timed on the device under its own profiler range
+MSHDS_TAIL_STAGES = (("moments", mshds_mod, "voiced_mean_moments_batch"),
+                     ("formants", mshds_mod, "formant_track_burg_batch"),
+                     ("durand-kerner", mshds_formants, "durand_kerner_roots"),
+                     ("ltas", mshds_mod, "ltas_pitch_corrected_batch"),
+                     ("cpps", mshds_mod, "cpps_segments_batch"))
 
 
-def _range_from_track(track) -> tuple:
-    """The MSHDS pitch range from the wide pass (the JAX package's
-    features/mshds.py:68-79; the port has no MSHDS extractor yet):
-    |z| ≤ 2 outlier filter, mean < 170 Hz → (60, 250) else (100, 500);
-    (75, 500) when nothing is voiced."""
-    v = track.f0[track.f0 > 0]
-    if v.size == 0:
-        return 75, 500
-    z = (v - v.mean()) / max(v.std(), 1e-12)
-    v = v[np.abs(z) <= 2]
-    if v.size == 0:
-        return 75, 500
-    return (60, 250) if v.mean() < 170 else (100, 500)
+class _MshdsProbe:
+    """Times the extractor's levels by wrapping the calls that end them (the
+    three ``collect`` calls: L0, L1, the tail; the device pulse march), and,
+    with ``ranges``, marks each tail stage with a profiler range. The
+    extractor's code runs as it is."""
+
+    def __init__(self, ranges: bool = False):
+        self.ends, self.patched = [], []
+        self.wrap(mshds_mod, "collect", "collect")
+        self.wrap(mshds_mod, "point_process_cc_batch", "pulses")
+        if ranges:
+            for label, module, name in MSHDS_TAIL_STAGES:
+                self.wrap(module, name, label, mark_end=False)
+
+    def wrap(self, module, name, label, mark_end=True):
+        from torch.profiler import record_function
+
+        real = getattr(module, name)
+
+        def wrapped(*args, **kwargs):
+            with record_function(f"mshds:{label}"):
+                out = real(*args, **kwargs)
+            if mark_end:
+                self.ends.append(time.perf_counter())
+            return out
+
+        self.patched.append((module, name, real))
+        setattr(module, name, wrapped)
+
+    def __enter__(self):
+        self.start = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self.stop = time.perf_counter()
+        for module, name, real in self.patched:
+            setattr(module, name, real)
+
+    def walls(self) -> dict:
+        """Seconds of each level: L0 (upload, resample, three passes), L1
+        (the speech-rate host logic under the queued range passes), pulses
+        (the device march), tail, and the host rows after it; the pulses
+        and the tail as one when the march ran on the host."""
+        names = {4: ("L0", "L1", "pulses", "tail", "rows"), 3: ("L0", "L1", "pulses+tail", "rows")}
+        if len(self.ends) not in names:
+            raise AssertionError(f"expected 3 collects and at most one device march, saw "
+                                 f"{len(self.ends)} calls")
+        marks = [self.start, *self.ends, self.stop]
+        return {k: b - a for k, a, b in zip(names[len(self.ends)], marks, marks[1:])}
 
 
-def mshds_l0(buf) -> tuple:
-    """Level 0 of the extractor: the 10 kHz buffer, then the wide pitch
-    pass, the speech-rate intensity and pitch, deferred and collected
-    behind one synchronisation. Returns (buf10k, wide, sr_intensity,
-    sr_pitch)."""
-    buf10k = mshds_framing.resample_buffer(
-        buf, MSHDS_UP, MSHDS_DOWN, preemphasis=math.exp(-2.0 * math.pi * 50.0 / 10000.0))
-    wide, sr_int, sr_pitch = mshds_framing.collect([
-        mshds_pitch.pitch_track_batch(None, SR, MSHDS_WIDE, buf=buf, defer=True),
-        mshds_intensity.intensity_contour_batch(None, SR, minimum_pitch=50, time_step=0.016,
-                                                subtract_mean=True, buf=buf, defer=True),
-        mshds_pitch.pitch_track_batch(None, SR, MSHDS_SPEECHRATE, buf=buf, defer=True),
-    ])
-    return buf10k, wide, sr_int, sr_pitch
+def mshds_extract(xs, device):
+    """One extraction through the port's entry point, with its level walls."""
+    with _MshdsProbe() as probe:
+        feats = mshds_mod.extract_mshds_arrays(xs, SR, device=device)
+        if device != "cpu":
+            torch.cuda.synchronize()
+    return feats, probe.stop - probe.start, probe.walls()
 
 
-def mshds_l1(buf, groups: dict) -> dict:
-    """Level 1, per range group (floor, ceiling) → file indices: the main
-    (voicing 0.45) and CPP (voicing 0.3) passes sharing one autocorrelation,
-    the cc pass, intensity and HNR, all collected behind one
-    synchronisation. Returns, by group, (main, cpp, cc, intensity, hnr)."""
-    stages = []
-    for (floor, ceiling), idxs in groups.items():
-        stages += [
-            mshds_pitch.pitch_track_batch_shared(
-                None, SR, [mshds_pitch.PitchParams(time_step=0.005, floor=floor, ceiling=ceiling),
-                           mshds_pitch.PitchParams(time_step=0.005, floor=floor, ceiling=ceiling,
-                                                   voicing_threshold=0.3)],
-                buf=buf, indices=idxs, defer=True),
-            mshds_pitch.pitch_track_batch(
-                None, SR, mshds_pitch.PitchParams(time_step=0.005, floor=floor, ceiling=ceiling,
-                                                  method="cc"),
-                buf=buf, indices=idxs, defer=True),
-            mshds_intensity.intensity_contour_batch(None, SR, minimum_pitch=floor,
-                                                    time_step=0.005, subtract_mean=True, buf=buf,
-                                                    indices=idxs, defer=True),
-            mshds_harmonicity.harmonicity_cc_batch(None, SR, time_step=0.005,
-                                                   minimum_pitch=floor, silence_threshold=0.1,
-                                                   periods_per_window=4.5, buf=buf, indices=idxs,
-                                                   defer=True),
-        ]
-    res = mshds_framing.collect(stages)
-    return {key: (res[4 * g][0], res[4 * g][1], res[4 * g + 1], res[4 * g + 2], res[4 * g + 3])
-            for g, key in enumerate(groups)}
+def _union_us(intervals, lo, hi) -> float:
+    """Microseconds of [lo, hi] covered by the union of the intervals."""
+    busy, cur_a, cur_b = 0.0, None, None
+    for a, b in sorted((max(a, lo), min(b, hi)) for a, b in intervals if b > lo and a < hi):
+        if cur_b is None or a > cur_b:
+            busy += 0.0 if cur_b is None else cur_b - cur_a
+            cur_a, cur_b = a, b
+        else:
+            cur_b = max(cur_b, b)
+    return busy + (0.0 if cur_b is None else cur_b - cur_a)
 
 
-def mshds_pitch_half(buf) -> dict:
-    """The pitch half of the MSHDS extractor over a corpus buffer, in the
-    JAX extractor's stages and order (features/mshds.py:261-508): L0, the
-    range groups from the wide pass, L1, then one glottal-pulse march over
-    the cc and CPP tracks together. Returns every result by file, the
-    groups, the 10 kHz buffer and each level's wall time."""
-    n = len(buf.xs)
-    walls = {}
-    t0 = time.perf_counter()
-    buf10k, wide, sr_int, sr_pitch = mshds_l0(buf)
-    walls["L0"] = time.perf_counter() - t0
-    groups = {}
-    for i, track in enumerate(wide):
-        groups.setdefault(_range_from_track(track), []).append(i)
-    t0 = time.perf_counter()
-    by_group = mshds_l1(buf, groups)
-    walls["L1"] = time.perf_counter() - t0
-    main, cpp, cc, inten, hnr = ([None] * n for _ in range(5))
-    for key, idxs in groups.items():
-        for j, i in enumerate(idxs):
-            main[i], cpp[i], cc[i], inten[i], hnr[i] = (r[j] for r in by_group[key])
-    t0 = time.perf_counter()
-    both = mshds_pulses.point_process_cc_batch(None, SR, cc + cpp, buf=buf)
-    walls["pulses"] = time.perf_counter() - t0
-    return {"wide": wide, "sr_int": sr_int, "sr_pitch": sr_pitch, "main": main, "cpp": cpp,
-            "cc": cc, "int": inten, "hnr": hnr, "cc_pulses": both[:n], "cpp_pulses": both[n:],
-            "groups": groups, "buf10k": buf10k, "walls": walls,
-            "march": (mshds_pulses._march_lanes.steps, mshds_pulses._march_lanes.syncs)}
+def profile_mshds_tail(xs, dev: torch.device) -> None:
+    """One profiled extraction: each tail stage's device time (its kernels,
+    by profiler range), Durand–Kerner's share, launches and host time, and
+    the device's idle share of the tail's window (from the end of the pulse
+    march to the end of the tail's collect)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with _MshdsProbe(ranges=True):
+            mshds_mod.extract_mshds_arrays(xs, SR, device=dev)
+            torch.cuda.synchronize()
+    events = prof.events()
+    ranges = collections.defaultdict(list)
+    for e in events:
+        if e.name.startswith("mshds:") and e.device_type == DeviceType.CPU:
+            ranges[e.name[6:]].append(e)
+    if len(ranges["collect"]) != 3 or len(ranges["pulses"]) != 1:
+        raise AssertionError(f"profiled ranges: {({k: len(v) for k, v in ranges.items()})}")
+    lo = ranges["pulses"][0].time_range.end
+    hi = ranges["collect"][2].time_range.end
+    # the device's own work: kernels and copies, not the device-side
+    # mirrors of the profiler ranges
+    kernels = [(e.time_range.start, e.time_range.end) for e in events
+               if e.device_type == DeviceType.CUDA and not e.name.startswith("mshds:")]
+    busy_us = _union_us(kernels, lo, hi)
+    if busy_us == 0:
+        log("[mshds] the profiler recorded no device time in the tail's window")
+        return
+
+    def launches(e) -> int:
+        return len(e.kernels) + sum(launches(c) for c in e.cpu_children)
+
+    parts = []
+    for label, _, _ in MSHDS_TAIL_STAGES:
+        (e,) = ranges[label]
+        parts.append(f"{label} {e.device_time_total / 1e3:.3f} ms device, {launches(e)} launches, "
+                     f"{e.time_range.elapsed_us() / 1e3:.3f} ms host")
+    log(f"[mshds] tail profile: window {(hi - lo) / 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} "
+        f"ms, idle {1 - busy_us / (hi - lo):.1%}; by stage (durand-kerner inside formants): "
+        + "; ".join(parts))
 
 
-def mshds_stats(res: dict, i: int) -> dict:
-    """File i's first-half MSHDS statistics (the extractor's rows at
-    features/mshds.py:419-429) and the speech-rate inputs."""
-    inten, sr_int = res["int"][i], res["sr_int"][i]
-    mn, mx = inten.min_db(), inten.max_db()
-    return {
-        "mean_F0": res["main"][i].mean_hz(), "stdev_F0_Semitone": res["main"][i].std_semitones(),
-        "mean_dB": inten.mean_energy_db(), "range_ratio_dB": mx / mn if mn != 0 else float("nan"),
-        "HNR_dB": res["hnr"][i].mean_db(), "sr_min_dB": sr_int.min_db(),
-        "sr_max_dB": sr_int.max_db(), "sr_q99_dB": sr_int.quantile(0.99),
-        "sr_voiced": float((res["sr_pitch"][i].f0 > 0).mean()),
-        "cc_pulses": len(res["cc_pulses"][i]),
-    }
-
-
-def _frame_agreement(a, b) -> float:
-    voiced = b.f0 > 0
-    agree = ((a.f0 > 0) == voiced) & (~voiced | (np.abs(a.f0 - b.f0) <= MSHDS_F0_REL * b.f0))
-    return float(agree.mean()) if len(agree) else 1.0
-
-
-def mshds_card_vs_cpu(card: dict, cpu: dict) -> None:
-    """The CPU run of the shortest files against the same files on the
-    card, each family held to its tolerance."""
-    worst = collections.defaultdict(lambda: 1.0)
-    err = collections.defaultdict(float)
-    for i in range(MSHDS_CPU_FILES):
-        for fam in ("wide", "sr_pitch", "main", "cpp", "cc"):
-            worst[f"{fam} frame share"] = min(worst[f"{fam} frame share"],
-                                              _frame_agreement(card[fam][i], cpu[fam][i]))
-        a, b = card["main"][i], cpu["main"][i]
-        err["main mean_hz rel"] = max(err["main mean_hz rel"],
-                                      abs(a.mean_hz() - b.mean_hz()) / b.mean_hz())
-        err["main std_semitones"] = max(err["main std_semitones"],
-                                        abs(a.std_semitones() - b.std_semitones()))
-        for fam in ("int", "sr_int"):
-            err[f"{fam} dB"] = max(err[f"{fam} dB"], float(np.abs(
-                card[fam][i].values_db - cpu[fam][i].values_db).max()))
-        a, b = card["hnr"][i].hnr_db, cpu["hnr"][i].hnr_db
-        worst["hnr NaN-mask share"] = min(worst["hnr NaN-mask share"],
-                                          float((np.isnan(a) == np.isnan(b)).mean()))
-        both = np.isfinite(a) & np.isfinite(b)
-        err["hnr dB"] = max(err["hnr dB"], float(np.abs(a[both] - b[both]).max()))
-        for fam in ("cc_pulses", "cpp_pulses"):
-            a, b = card[fam][i], cpu[fam][i]
-            share = float(np.isin(np.round(b, 9), np.round(a, 9)).mean()) if len(b) else 1.0
-            worst[f"{fam} share"] = min(worst[f"{fam} share"], share)
-    log(f"[mshds-pitch] card vs CPU, files 0-{MSHDS_CPU_FILES - 1}: "
-        + ", ".join(f"{k} {v:.6f}" for k, v in {**worst, **err}.items())
-        + f" (tolerances: frame share >= {MSHDS_FRAME_SHARE}, mean_hz {MSHDS_MEAN_REL}, "
-          f"std {MSHDS_STD_ABS}, dB {MSHDS_DB_TOL}, HNR mask >= {MSHDS_HNR_MASK_SHARE}, "
-          f"HNR {MSHDS_HNR_TOL} dB, pulses >= {MSHDS_PULSE_SHARE})")
-    ok = (all(v >= MSHDS_FRAME_SHARE for k, v in worst.items() if "frame" in k)
-          and err["main mean_hz rel"] <= MSHDS_MEAN_REL
-          and err["main std_semitones"] <= MSHDS_STD_ABS
-          and err["int dB"] <= MSHDS_DB_TOL and err["sr_int dB"] <= MSHDS_DB_TOL
-          and worst["hnr NaN-mask share"] >= MSHDS_HNR_MASK_SHARE
-          and err["hnr dB"] <= MSHDS_HNR_TOL
-          and worst["cc_pulses share"] >= MSHDS_PULSE_SHARE
-          and worst["cpp_pulses share"] >= MSHDS_PULSE_SHARE)
-    if not ok:
-        raise AssertionError("the MSHDS pitch half on the card disagrees with the CPU")
-
-
-def mshds_pitch_phase(dev: torch.device, records: dict) -> dict:
-    """The MSHDS pitch half of a 16-file corpus on the card: launches, wall
-    times, K7 on a real slab against its plain version and timed at the
-    largest, the card against the CPU on the shortest files, a profile of
-    one L1 level. Adds K6/K7's times at this path's shape to ``records``
-    and returns the launches."""
+def mshds_phase(dev: torch.device, records: dict) -> dict:
+    """The whole MSHDS-25 extractor over a 16-file corpus on the card:
+    launches, wall times by level, K7 on a real slab against its plain
+    version and timed at the largest, the card against the CPU on the
+    shortest files feature by feature, the tail's profile. Adds K6/K7's
+    times at this path's shape to ``records`` and returns the launches."""
     t0 = time.perf_counter()
     seconds = np.linspace(MSHDS_MIN_S, MSHDS_MAX_S, MSHDS_FILES)
     f0s = np.linspace(*MSHDS_F0, MSHDS_FILES)
     xs = [_speech(s, f0, 100 + i).astype(np.float64) for i, (s, f0) in enumerate(zip(seconds, f0s))]
     audio_s = sum(len(x) for x in xs) / SR
-    pad16 = max(4096, int(0.14 * SR) + 64)
-    log(f"[mshds-pitch] corpus: {MSHDS_FILES} files, {MSHDS_MIN_S}–{MSHDS_MAX_S} s, f0 "
+    log(f"[mshds] corpus: {MSHDS_FILES} files, {MSHDS_MIN_S}–{MSHDS_MAX_S} s, f0 "
         f"{MSHDS_F0[0]}–{MSHDS_F0[1]} Hz, {audio_s:.1f} audio-s of 16-bit PCM, made in "
-        f"{time.perf_counter() - t0:.2f} s; buffer pad {pad16}, align {MSHDS_DOWN}")
+        f"{time.perf_counter() - t0:.2f} s")
 
-    calls = []  # (B, T, C, args) of every path-finder call of the first pass
+    calls = []  # the arguments of every path-finder call of the first pass
     real_path = mshds_pitch.viterbi_path
 
     def recording_path(*args):
         calls.append(args)
         return real_path(*args)
-
-    def whole(device):
-        start = time.perf_counter()
-        buf = mshds_framing.corpus_buffer(xs if device != "cpu" else xs[:MSHDS_CPU_FILES],
-                                          pad=pad16, align=MSHDS_DOWN, device=device)
-        res = mshds_pitch_half(buf)
-        if device != "cpu":
-            torch.cuda.synchronize()
-        res["wall"] = time.perf_counter() - start
-        return buf, res
 
     counters = _counters()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1728,74 +1694,37 @@ def mshds_pitch_phase(dev: torch.device, records: dict) -> dict:
         fn.launches = 0
     mshds_pitch.viterbi_path = recording_path
     try:
-        buf, card = whole(dev)
+        card, first_wall, first_walls = mshds_extract(xs, dev)
     finally:
         mshds_pitch.viterbi_path = real_path
     launches = {name: fn.launches for name, fn in counters.items()}
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
-    groups = card["groups"]
-    n_passes = 2 + 3 * len(groups)  # wide + speech-rate; main, CPP and cc per group
-    log(f"[mshds-pitch] range groups {dict((k, len(v)) for k, v in groups.items())}; "
-        f"main-path launches: {launches}; expected {n_passes} of K7 and of K6 (wide, "
-        f"speech-rate, and main, CPP and cc per group), no other kernel")
-    if len(groups) != 2:
-        raise AssertionError(f"the corpus did not form both range groups: {groups}")
+    if "pulses" not in first_walls:
+        raise AssertionError("the corpus did not take the device pulse march")
+    n_passes = 2 + 3 * 2  # wide + speech-rate; main, CPP and cc per range group
+    log(f"[mshds] main-path launches: {launches}; expected {n_passes} of K7 and of K6 (wide, "
+        f"speech-rate, and main, CPP and cc in each of the 2 range groups), no other kernel")
     if not (launches["viterbi_path"] == launches["viterbi_forward_costs"] == n_passes
             and sum(launches.values()) == 2 * n_passes and len(calls) == n_passes):
-        raise AssertionError("the MSHDS pitch half did not launch K6/K7, and only them, "
-                             "once per pitch pass")
-    steady = [whole(dev)[1] for _ in range(3)]
-    walls = [r["wall"] for r in steady]
+        raise AssertionError("the MSHDS extractor did not launch K6/K7, and only them, once per "
+                             "pitch pass over both range groups")
+    if card.shape != (MSHDS_FILES, 25) or np.isfinite(card).sum() < 0.95 * card.size:
+        raise AssertionError(f"MSHDS features misshapen or mostly NaN: {card.shape}, "
+                             f"{int(np.isfinite(card).sum())} finite")
+
+    steady = [mshds_extract(xs, dev) for _ in range(3)]
+    walls = [w for _, w, _ in steady]
     median = steady[walls.index(statistics.median(walls))]
-    steps, syncs = median["march"]
-    log(f"[mshds-pitch] first pass {card['wall']:.3f} s ({audio_s / card['wall']:.1f} audio-s/s); "
-        f"steady median {median['wall']:.3f} s of {[round(w, 3) for w in walls]} s, "
-        f"{audio_s / median['wall']:.1f} audio-s/s; levels (first / steady median) "
-        + ", ".join(f"{k} {card['walls'][k]:.3f} / {median['walls'][k]:.3f} s"
-                    for k in card["walls"])
-        + f"; upload + host rest {median['wall'] - sum(median['walls'].values()):.3f} s; "
-        f"march {steps} steps, {syncs} host syncs, {median['walls']['pulses']:.3f} s = "
-        f"{median['walls']['pulses'] / median['wall']:.1%} of the phase; peak memory "
-        f"{peak_gib:.3f} GiB")
+    log(f"[mshds] first pass {first_wall:.3f} s ({audio_s / first_wall:.1f} audio-s/s); "
+        f"steady median {median[1]:.3f} s of {[round(w, 3) for w in walls]} s, "
+        f"{audio_s / median[1]:.1f} audio-s/s; levels (first / steady median) "
+        + ", ".join(f"{k} {first_walls[k]:.3f} / {median[2][k]:.3f} s" for k in first_walls)
+        + f"; march {mshds_pulses._march_lanes.steps} steps, {mshds_pulses._march_lanes.syncs} "
+        f"host syncs; peak memory {peak_gib:.3f} GiB")
+    for feats, _, _ in steady:
+        np.testing.assert_array_equal(feats, card)  # the same bits on every pass
 
-    # the pulse level split: the march loop alone, synchronised around it,
-    # against the host lane plan, compaction and finalize around it
-    real_march, loop_s = mshds_pulses._march_lanes, []
-
-    def timed_march(*args):
-        torch.cuda.synchronize()
-        start = time.perf_counter()
-        out = real_march(*args)
-        torch.cuda.synchronize()
-        loop_s.append(time.perf_counter() - start)
-        return out
-
-    mshds_pulses._march_lanes = timed_march
-    try:
-        t0 = time.perf_counter()
-        mshds_pulses.point_process_cc_batch(None, SR, median["cc"] + median["cpp"], buf=buf)
-        level_s = time.perf_counter() - t0
-    finally:
-        mshds_pulses._march_lanes = real_march
-    log(f"[mshds-pitch] pulse level again, split: {level_s:.3f} s, of it the march loop "
-        f"{loop_s[0]:.3f} s ({steps} steps, {loop_s[0] / steps * 1e3:.3f} ms a step) and the "
-        f"host lane plan, compaction and finalize {level_s - loop_s[0]:.3f} s")
-
-    b10 = card["buf10k"]
-    expected10k = [-(-len(x) * MSHDS_UP // MSHDS_DOWN) for x in xs]
-    if [len(x) for x in b10.xs] != expected10k or not torch.isfinite(b10.x_cat).all():
-        raise AssertionError("the 10 kHz buffer is misshapen or not finite")
-    for name in ("wide", "main", "cpp", "cc", "int", "hnr", "cc_pulses"):
-        if any(r is None for r in card[name]):
-            raise AssertionError(f"a file has no {name} result")
-    n_frames = sum(len(t.f0) for t in card["main"])
-    voiced = sum(int((t.f0 > 0).sum()) for t in card["main"])
-    pulses_n = sum(len(p) for p in card["cc_pulses"]) + sum(len(p) for p in card["cpp_pulses"])
-    if not (voiced > 0.3 * n_frames and pulses_n > 50 * audio_s
-            and all(np.isfinite(mshds_stats(card, i)["mean_F0"]) for i in range(MSHDS_FILES))):
-        raise AssertionError("the MSHDS pitch half found too little voicing or too few pulses")
-
-    # K7 on real candidate stacks: a slab of the main pass (the first call of
+    # K7 on real candidate stacks: a slab of a main pass (the first call of
     # L1), then every K7 call's inputs timed at the largest (the wide pass)
     largest = max(calls, key=lambda a: a[0].numel())
     for label, args in (("main-pass slab", calls[2]), ("largest slab", largest)):
@@ -1806,7 +1735,7 @@ def mshds_pitch_phase(dev: torch.device, records: dict) -> dict:
         ref_costs, plain_k6_ms = timed_once(
             lambda: viterbi_ops.viterbi_forward_costs_reference(*args))
         same = float((path == ref_path).float().mean())
-        log(f"[mshds-pitch] K7 on the {label} B={b} T={t} C={c} (Praat weights w_vv="
+        log(f"[mshds] K7 on the {label} B={b} T={t} C={c} (Praat weights w_vv="
             f"{args[3]:.4f}, w_diff={args[5]:.4f}): paths identical on {same:.6%} of frames, "
             f"K6 max|dc|={float((costs - ref_costs).abs().max()):.3e} (required: 100 % and 0)")
         if not (torch.equal(path, ref_path) and torch.equal(costs, ref_costs)):
@@ -1819,29 +1748,61 @@ def mshds_pitch_phase(dev: torch.device, records: dict) -> dict:
         bound, bound_by = viterbi_bound_ms(b, t, c, is_path)
         records[name]["mshds"] = {"shape": f"B={b} T={t} C={c}", "ms": ms, "plain_ms": plain,
                                   "bound_ms": bound, "bound_by": bound_by, "library_ms": None}
-        log(f"[mshds-pitch] {name} at the largest slab B={b} T={t} C={c}: kernel {ms:.4f} ms "
+        log(f"[mshds] {name} at the largest slab B={b} T={t} C={c}: kernel {ms:.4f} ms "
             f"({ms / t * 1e3:.4f} us a step), plain {plain:.4f} ms, bound {bound:.6f} ms "
             f"({bound_by})")
 
     t0 = time.perf_counter()
-    _, cpu = whole("cpu")
-    log(f"[mshds-pitch] the {MSHDS_CPU_FILES} shortest files on the CPU: "
-        f"{time.perf_counter() - t0:.3f} s, range groups "
-        f"{dict((k, len(v)) for k, v in cpu['groups'].items())}")
-    for i in range(MSHDS_CPU_FILES):
-        key = [k for k, v in groups.items() if i in v]
-        if key != [k for k, v in cpu["groups"].items() if i in v]:
-            raise AssertionError(f"file {i} fell into another range group on the CPU")
-    mshds_card_vs_cpu(card, cpu)
-    for i in range(MSHDS_FILES):
-        stats = mshds_stats(card, i)
-        cpu_stats = mshds_stats(cpu, i) if i < MSHDS_CPU_FILES else None
-        log(f"[mshds-pitch] file {i:2d} ({seconds[i]:.1f} s, f0 {f0s[i]:.1f} Hz): "
-            + ", ".join(f"{k} {v:.4f}" + (f" / CPU {cpu_stats[k]:.4f}" if cpu_stats else "")
-                        for k, v in stats.items()))
-
-    profile_device("one MSHDS L1 level (both range groups)", lambda: mshds_l1(buf, groups), 12)
+    cpu, cpu_wall, _ = mshds_extract(xs[:MSHDS_CPU_FILES], "cpu")
+    log(f"[mshds] the {MSHDS_CPU_FILES} shortest files on the CPU: {cpu_wall:.3f} s")
+    mshds_card_vs_cpu(card[:MSHDS_CPU_FILES], cpu, seconds, f0s)
+    moments_stage_card_vs_cpu(xs[:MSHDS_CPU_FILES], dev)
+    profile_mshds_tail(xs, dev)
     return launches
+
+
+def _open_gate(t):
+    """Voiced where the corpus recipe's syllable gate is open."""
+    return (np.atleast_1d(t) % 0.6) < 0.42
+
+
+def moments_stage_card_vs_cpu(xs, dev: torch.device) -> None:
+    """The spectral-moments stage alone on the card and on the CPU, fed the
+    same voiced frames: what is left of the extractor's moment differences
+    once the main pitch track's voicing is taken out of them."""
+    fns = [_open_gate] * len(xs)
+    card = np.asarray(mshds_spectral.voiced_mean_moments_batch(xs, SR, fns, device=dev))
+    cpu = np.asarray(mshds_spectral.voiced_mean_moments_batch(xs, SR, fns, device="cpu"))
+    rel = float((np.abs(card - cpu) / np.abs(cpu)).max())
+    log(f"[mshds] the moments stage alone, the same voiced frames, card vs CPU: max rel "
+        f"{rel:.3e} (tol {MSHDS_MOMENTS_STAGE_RTOL})")
+    if not rel <= MSHDS_MOMENTS_STAGE_RTOL:
+        raise AssertionError("the spectral-moments stage on the card disagrees with the CPU")
+
+
+def mshds_card_vs_cpu(card: np.ndarray, cpu: np.ndarray, seconds, f0s) -> None:
+    """The shortest files' 25 features, card beside CPU, each held to its
+    tolerance; NaN masks equal."""
+    bad = []
+    for k, name in enumerate(mshds_mod.FEATURE_NAMES):
+        rtol, atol = MSHDS_TOL[name]
+        a, b = card[:, k], cpu[:, k]
+        both = np.isfinite(a) & np.isfinite(b)
+        err = np.abs(a - b)
+        rel = err / np.maximum(np.abs(b), 1e-30)
+        worst = float((rel if rtol else err)[both].max(initial=0.0))
+        ok = np.array_equal(np.isnan(a), np.isnan(b)) and bool(
+            (err[both] <= atol + rtol * np.abs(b[both])).all())
+        log(f"[mshds] {name:26s} worst {'rel' if rtol else 'abs'} {worst:.3e} "
+            f"(tol {rtol or atol}){'' if ok else '  <-- FAILS'}")
+        if not ok:
+            bad.append(name)
+    for i in range(len(cpu)):
+        log(f"[mshds] file {i} ({seconds[i]:.1f} s, f0 {f0s[i]:.1f} Hz), card / CPU: "
+            + ", ".join(f"{n} {a:.6g} / {b:.6g}" for n, a, b in
+                        zip(mshds_mod.FEATURE_NAMES, card[i], cpu[i])))
+    if bad:
+        raise AssertionError(f"MSHDS features on the card disagree with the CPU: {bad}")
 
 
 def ptxas_report(text: str) -> list:
@@ -1863,13 +1824,72 @@ def ptxas_report(text: str) -> list:
     return lines
 
 
+def _tf32_flags() -> tuple:
+    """(matmul, cuDNN conv, cuDNN RNN) float32 precisions, torch's
+    fp32_precision API (the legacy allow_tf32 flags are never read: torch
+    raises where they are read after the new API set them)."""
+    return (torch.backends.cuda.matmul.fp32_precision, torch.backends.cudnn.conv.fp32_precision,
+            torch.backends.cudnn.rnn.fp32_precision)
+
+
+def tf32_phase(dev: torch.device) -> None:
+    """Under torch's default flags (cuDNN convolutions allowed TF32) the
+    port's convolutions run in IEEE float32 on their own: the flagship
+    logits of two 4378-frame rows hold to the CPU (FLAGSHIP_TOL), and
+    resample_poly of a 60 s file (16 kHz → 10 kHz) holds to the CPU within
+    RESAMPLE_TOL; the flags are the same after each call. The same calls
+    with the port's switch taken out show what TF32 would have done."""
+    from contextlib import nullcontext
+
+    from robust_speech_analysis_framework_tpu_torch.audio import resample as resample_mod
+    from robust_speech_analysis_framework_tpu_torch.models import cnn_lstm as cnn_lstm_mod
+
+    defaults = _tf32_flags()
+    log(f"[tf32] torch's flags (matmul, cuDNN conv, cuDNN RNN): {defaults}")
+    if defaults[1] != "tf32":
+        raise AssertionError("torch's default no longer lets cuDNN convolutions use TF32: "
+                             "this check would prove nothing")
+    model = build_cnn_lstm(DIM, 128, 128, seed=0, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn(2, PAD_LEN, DIM, device=dev, generator=gen)
+    x[:, SEQ_LEN:] = 0.0
+    lengths = torch.tensor([SEQ_LEN, 3000], dtype=torch.int32, device=dev)
+    with torch.inference_mode():
+        card = model(x, lengths).cpu()
+        after_forward = _tf32_flags()
+        cpu = copy.deepcopy(model).cpu()(x.cpu(), lengths.cpu())
+    err = float((card - cpu).abs().max())
+    wave = torch.from_numpy(_speech(60.0, 150.0, 7))
+    y_cpu = resample_mod.resample_poly(wave, 5, 8)
+    y_card = resample_mod.resample_poly(wave.to(dev), 5, 8).cpu()
+    after_resample = _tf32_flags()
+    r_err = float((y_card - y_cpu).abs().max())
+    # the same two calls with the port's switch taken out: TF32 where cuDNN
+    # takes it
+    real_switches = (cnn_lstm_mod.fp32_convs, resample_mod.fp32_convs)
+    cnn_lstm_mod.fp32_convs = resample_mod.fp32_convs = nullcontext
+    try:
+        with torch.inference_mode():
+            tf32_err = float((model(x, lengths).cpu() - cpu).abs().max())
+        tf32_r_err = float((resample_mod.resample_poly(wave.to(dev), 5, 8).cpu()
+                            - y_cpu).abs().max())
+    finally:
+        cnn_lstm_mod.fp32_convs, resample_mod.fp32_convs = real_switches
+    log(f"[tf32] under torch's defaults: flagship logits card vs CPU max|d|={err:.3e} (tol "
+        f"{FLAGSHIP_TOL}; without the port's switch {tf32_err:.3e}); resample_poly max|d|="
+        f"{r_err:.3e} (tol {RESAMPLE_TOL}; without the switch {tf32_r_err:.3e}); flags after "
+        f"each call {after_forward}, {after_resample}")
+    if not (err <= FLAGSHIP_TOL and r_err <= RESAMPLE_TOL
+            and after_forward == after_resample == defaults):
+        raise AssertionError("the port's convolutions are not float32 under torch's default "
+                             "flags, or a call changed the caller's flags")
+
+
 def run(dev: torch.device, smi: str) -> None:
     """Every phase on ``dev``; prints the kernels' record and the result line."""
     log(f"[card] {smi}")
     log(f"[card] torch {torch.__version__} CUDA {torch.version.cuda}; "
-        f"{torch.cuda.get_device_name(dev)}; TF32 off in every phase")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+        f"{torch.cuda.get_device_name(dev)}; TF32 off in every phase after the tf32 check")
 
     t0 = time.perf_counter()
     _build.build_all()
@@ -1877,6 +1897,10 @@ def run(dev: torch.device, smi: str) -> None:
     for name, text in _build.build_logs.items():
         for line in ptxas_report(text):
             log(f"[build] {name}: {line}")
+    tf32_phase(dev)
+    torch.backends.cuda.matmul.fp32_precision = "ieee"
+    torch.backends.cudnn.conv.fp32_precision = "ieee"
+    torch.backends.cudnn.rnn.fp32_precision = "ieee"
 
     records = kernel_phase(dev)
     records.update(train_kernel_phase(dev))
@@ -1892,7 +1916,7 @@ def run(dev: torch.device, smi: str) -> None:
     cv, cv_lanes = cv_phase(dev, streaming_step_ms)
     parity_phase(dev)
     opensmile = opensmile_phase(dev)
-    mshds = mshds_pitch_phase(dev, records)
+    mshds = mshds_phase(dev, records)
 
     kernels = []
     for name, source, replaces in (
@@ -1907,7 +1931,7 @@ def run(dev: torch.device, smi: str) -> None:
         rec = records[name]
         by_path = {"serving": serving[name], "training": training[name], "cv": cv[name],
                    "cv-lanes": cv_lanes[name], "opensmile": opensmile[name],
-                   "mshds-pitch": mshds[name]}
+                   "mshds": mshds[name]}
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(by_path.values()),

@@ -16,6 +16,8 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from ..device import fp32_convs
+
 
 def _kaiser_beta(atten_db: float) -> float:
     if atten_db > 50:
@@ -71,7 +73,8 @@ def _upfirdn_conv(x: torch.Tensor, h: np.ndarray, up: int, down: int) -> torch.T
     stuffed = x.new_zeros(int(np.prod(batch_shape, dtype=np.int64)), 1, (t - 1) * up + 1)
     stuffed[:, 0, ::up] = x.reshape(-1, t)
     rhs = torch.from_numpy(np.ascontiguousarray(h[::-1])).to(x).reshape(1, 1, -1)
-    out = torch.nn.functional.conv1d(stuffed, rhs, stride=down, padding=len(h) - 1)
+    with fp32_convs():
+        out = torch.nn.functional.conv1d(stuffed, rhs, stride=down, padding=len(h) - 1)
     n_keep = -(-((t - 1) * up + len(h)) // down)
     return out[..., :n_keep].reshape(*batch_shape, -1)
 

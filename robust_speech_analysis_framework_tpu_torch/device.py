@@ -2,7 +2,8 @@
 
 from __future__ import annotations
 
-from typing import Union
+import contextlib
+from typing import Iterator, Union
 
 import torch
 
@@ -27,3 +28,23 @@ def resolve_device(device: DeviceLike = "cuda") -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}: use 'cuda' or 'cpu'")
     return dev
+
+
+@contextlib.contextmanager
+def fp32_convs() -> Iterator[None]:
+    """Run the enclosed cuDNN convolutions in IEEE float32, whatever the
+    process-wide setting (torch lets cuDNN convolutions use TF32 by default),
+    and restore the caller's setting on exit.
+
+    The port's results are held to the CPU and to the JAX reference in
+    float32, so its precision is its own decision. Only torch's
+    ``fp32_precision`` API is used: mixing it with the legacy
+    ``allow_tf32`` flags makes torch raise when the legacy flag is read.
+    """
+    conv = torch.backends.cudnn.conv
+    saved = conv.fp32_precision
+    conv.fp32_precision = "ieee"
+    try:
+        yield
+    finally:
+        conv.fp32_precision = saved

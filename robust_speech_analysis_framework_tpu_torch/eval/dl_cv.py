@@ -155,13 +155,19 @@ def _corpus_budget_bytes(device: torch.device) -> int:
     """Resident-corpus budget: a quarter of the card's total memory, so that
     fold activations and optimizer state still fit; the 4 GiB literal on the
     CPU. ``RSAF_CORPUS_BUDGET_BYTES`` overrides both, for workloads that
-    know their activation envelope."""
+    know their activation envelope; a value that is not a positive integer
+    raises (the JAX package ignores a malformed one, and zero or a negative
+    value there turns the resident corpus off without a word)."""
     env = os.environ.get("RSAF_CORPUS_BUDGET_BYTES")
     if env:
         try:
-            return int(env)
+            budget = int(env)
         except ValueError:
-            pass
+            budget = 0
+        if budget <= 0:
+            raise ValueError(f"RSAF_CORPUS_BUDGET_BYTES={env!r}: expected a positive number "
+                             "of bytes")
+        return budget
     if device.type == "cuda":
         return torch.cuda.get_device_properties(device).total_memory // 4
     return _CORPUS_BUDGET_FALLBACK_BYTES

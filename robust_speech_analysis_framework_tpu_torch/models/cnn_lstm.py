@@ -51,7 +51,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..device import DeviceLike, resolve_device
+from ..device import DeviceLike, fp32_convs, resolve_device
 from ..ops.cuda.lstm import lstm_recurrence_grouped, lstm_scan_grouped
 from .init import init_weights_
 from .weights import infer_architecture
@@ -141,11 +141,13 @@ class ResidualBlock(nn.Module):
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         x = x.transpose(1, 2)
-        h = self.act(self.bn1(self.conv1(x)))
-        if self.training:
-            h = dropout(h, self.dropout, generator)
-        h = self.bn2(self.conv2(h))
-        return self.act(h + self.shortcut(x)).transpose(1, 2)
+        with fp32_convs():
+            h = self.act(self.bn1(self.conv1(x)))
+            if self.training:
+                h = dropout(h, self.dropout, generator)
+            h = self.bn2(self.conv2(h))
+            skip = self.shortcut(x)
+        return self.act(h + skip).transpose(1, 2)
 
 
 class BiLSTM(nn.Module):
@@ -366,8 +368,9 @@ class LaneConv1d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         k, out, inp, ks = self.weight.shape
-        return F.conv1d(x, self.weight.reshape(k * out, inp, ks), self.bias.reshape(-1),
-                        padding=self.padding, groups=x.shape[1] // inp)
+        with fp32_convs():
+            return F.conv1d(x, self.weight.reshape(k * out, inp, ks), self.bias.reshape(-1),
+                            padding=self.padding, groups=x.shape[1] // inp)
 
 
 class LaneLinear(nn.Module):

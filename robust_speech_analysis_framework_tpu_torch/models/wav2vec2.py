@@ -24,6 +24,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..device import fp32_convs
+
 
 @dataclasses.dataclass(frozen=True)
 class Wav2Vec2Config:
@@ -89,7 +91,8 @@ class FeatureEncoder(nn.Module):
         h = waveform[:, None, :]  # (B, 1, L)
         cur_lengths = lengths
         for i, (k, s) in enumerate(zip(cfg.conv_kernel, cfg.conv_stride)):
-            h = getattr(self, f"conv_{i}")(h)
+            with fp32_convs():
+                h = getattr(self, f"conv_{i}")(h)
             if cur_lengths is not None:
                 cur_lengths = torch.div(cur_lengths - k, s, rounding_mode="floor") + 1
             if i == 0:
@@ -121,7 +124,8 @@ class PositionalConvEmbedding(nn.Module):
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.conv(x.transpose(1, 2))
+        with fp32_convs():
+            h = self.conv(x.transpose(1, 2))
         # Even kernel + symmetric padding yields one extra frame; drop it.
         return F.gelu(h[:, :, : x.shape[1]]).transpose(1, 2)
 

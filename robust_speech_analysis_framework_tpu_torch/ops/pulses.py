@@ -252,6 +252,26 @@ def _compact_pulse_buf(bufs, ks, off, cap, out_size: int) -> torch.Tensor:
 _march_lanes.steps = _march_lanes.syncs = 0
 
 
+def march_windows(sr: float, tracks) -> Tuple[int, int]:
+    """(seed, march) gather windows, in samples, that the lowest voiced f0
+    of the tracks the march takes (two frames or more) needs at ``sr``;
+    (0, 0) when nothing is voiced. The device march's fixed windows
+    (``_W_SEED``, ``_W_MARCH``) are sized for speech floors at sr ≤ 16 kHz,
+    and :func:`point_process_cc_batch` raises when a batch needs more."""
+    voiced = [float(np.min(tr.f0[tr.f0 > 0])) for tr in tracks
+              if tr is not None and len(tr.times) > 1 and np.any(tr.f0 > 0)]
+    if not voiced:
+        return 0, 0
+    min_f0 = min(voiced)
+    return int(2.0 * sr / min_f0) + 2, int(0.45 * sr / min_f0) + 2
+
+
+def march_windows_fit(sr: float, tracks) -> bool:
+    """Whether the device march can take ``tracks`` at ``sr``."""
+    need = march_windows(sr, tracks)
+    return need[0] <= _W_SEED and need[1] <= _W_MARCH
+
+
 def point_process_cc_batch(xs, sr: float, tracks, buf=None, defer: bool = False,
                            device: DeviceLike = "cuda"):
     """:func:`point_process_cc` for many (file, track) pairs at once.
@@ -294,16 +314,11 @@ def point_process_cc_batch(xs, sr: float, tracks, buf=None, defer: bool = False,
         if abs(tr_dt - dt) > 1e-9:
             raise ValueError(f"mixed pitch-track time steps in one batch: {dt} vs {tr_dt}; "
                              "call point_process_cc_batch per step family")
-    # the fixed gather windows are sized for sr ≤ 16 kHz speech floors
-    voiced = [float(np.min(tr.f0[tr.f0 > 0])) for tr in usable if np.any(tr.f0 > 0)]
-    if voiced:
-        min_f0 = min(voiced)
-        need_seed, need_march = int(2.0 * sr / min_f0) + 2, int(0.45 * sr / min_f0) + 2
-        if need_seed > _W_SEED or need_march > _W_MARCH:
-            raise ValueError(
-                f"sr={sr} with pitch floor {min_f0:.1f} Hz needs gather windows "
-                f"({need_seed}, {need_march}) exceeding the march's ({_W_SEED}, {_W_MARCH}); "
-                "resample to ≤16 kHz or use the host point_process_cc oracle")
+    if not march_windows_fit(sr, usable):
+        raise ValueError(
+            f"sr={sr} with the tracks' lowest f0 needs gather windows "
+            f"{march_windows(sr, usable)} exceeding the march's ({_W_SEED}, {_W_MARCH}); "
+            "resample to ≤16 kHz or use the host point_process_cc oracle")
     t_max = max(len(f) for f in f0_list)
     f0_pad = np.zeros((len(f0_list), t_max), np.float32)
     for i, f in enumerate(f0_list):

@@ -77,7 +77,7 @@ import torch
 import torch.nn.functional as F
 
 from ..data.batching import batch_iterator, bucket_length, length_sorted_batches, pad_batch
-from ..device import DeviceLike, resolve_device
+from ..device import DeviceLike, fp32_convs, resolve_device
 from ..models.cnn_lstm import CNNLSTM, BatchNorm, CNNLSTMLanes
 from ..models.init import init_training_weights_
 from ..ops.framing import Deferred
@@ -379,7 +379,8 @@ class Trainer:
             logits = model(x, lens, dropout_rate, generator)
         loss = F.cross_entropy(logits, y)
         state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        with fp32_convs():  # the convs' backward and a remat forward run here
+            loss.backward()
         for group in state.optimizer.param_groups:
             group["lr"] = state.lr
         state.optimizer.step()
@@ -411,7 +412,8 @@ class Trainer:
             logits = model(x, lens, dropout_rates, generator)
         losses = _lane_cross_entropy(logits, y)
         state.optimizer.zero_grad()
-        losses.sum().backward()  # a lane's parameters see only its own loss
+        with fp32_convs():
+            losses.sum().backward()  # a lane's parameters see only its own loss
         state.optimizer.step(state.lr)
         return losses.detach()
 

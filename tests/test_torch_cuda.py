@@ -25,9 +25,53 @@ DWH_TOL = 1e-4  # dWh sums T·B products: relative
 def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    # torch's fp32_precision API only, as the port's own switch
+    # (device.fp32_convs): torch raises where the legacy allow_tf32 flags
+    # are read after the new API has set them
+    torch.backends.cuda.matmul.fp32_precision = "ieee"
+    torch.backends.cudnn.conv.fp32_precision = "ieee"
+    torch.backends.cudnn.rnn.fp32_precision = "ieee"
     return torch.device("cuda")
+
+
+def _tf32_flags():
+    return (torch.backends.cuda.matmul.fp32_precision, torch.backends.cudnn.conv.fp32_precision,
+            torch.backends.cudnn.rnn.fp32_precision)
+
+
+def test_convs_run_in_fp32_under_torchs_default_flags():
+    """Under torch's default flags (cuDNN convolutions allowed TF32) the
+    flagship model's logits hold to the CPU within 1e-4 and resample_poly
+    within 1e-5 of the input's scale: the port runs its convolutions in IEEE
+    float32 itself, and leaves the caller's flags as they were. This test
+    does not take the TF32-off fixture."""
+    from robust_speech_analysis_framework_tpu_torch.audio.resample import resample_poly
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    saved = _tf32_flags()
+    try:
+        torch.backends.cuda.matmul.fp32_precision = "none"  # torch's defaults
+        torch.backends.cudnn.conv.fp32_precision = "tf32"
+        torch.backends.cudnn.rnn.fp32_precision = "tf32"
+        defaults = _tf32_flags()
+        rng = np.random.default_rng(5)
+        model = build_cnn_lstm(input_dim=768, cnn_out_channels=128, lstm_hidden_dim=128,
+                               seed=3, device="cuda")
+        x = torch.from_numpy(rng.normal(size=(2, 1200, 768)).astype(np.float32))
+        lengths = torch.tensor([1200, 777], dtype=torch.int32)
+        with torch.inference_mode():
+            card = model(x.cuda(), lengths.cuda()).cpu()
+            assert _tf32_flags() == defaults
+            cpu = model.cpu()(x, lengths)
+        torch.testing.assert_close(card, cpu, rtol=0, atol=1e-4)
+        wave = torch.from_numpy(rng.uniform(-1, 1, 160_000).astype(np.float32))
+        y_card = resample_poly(wave.cuda(), 5, 8).cpu()
+        assert _tf32_flags() == defaults
+        torch.testing.assert_close(y_card, resample_poly(wave, 5, 8), rtol=0, atol=1e-5)
+    finally:
+        (torch.backends.cuda.matmul.fp32_precision, torch.backends.cudnn.conv.fp32_precision,
+         torch.backends.cudnn.rnn.fp32_precision) = saved
 
 
 SCAN_TILES = (1, 2)  # the forward scan's batch tiles
@@ -372,3 +416,24 @@ def test_mshds_pitch_half_on_card_matches_cpu(cuda_device):
     for a, b in zip(card[5], cpu[5]):
         assert not len(b) or np.isin(np.round(b, 9), np.round(a, 9)).mean() >= 0.99
     assert sum(len(p) for p in card[5]) > 500
+
+
+def test_mshds_extractor_on_card_matches_cpu(cuda_device):
+    """The whole MSHDS-25 extractor (extract_mshds_arrays) on the card and on
+    the CPU: K7 once per pitch pass (wide, speech-rate, then main, CPP and cc
+    per range group), NaN masks equal, every feature within its tolerance
+    (chip_smoke.py's MSHDS_TOL)."""
+    import chip_smoke
+    from robust_speech_analysis_framework_tpu_torch.features import mshds
+    from robust_speech_analysis_framework_tpu_torch.ops.cuda import viterbi
+
+    xs = [_mshds_speech(2.0, 100, 0), _mshds_speech(3.1, 200, 1), _mshds_speech(1.4, 130, 2)]
+    before = viterbi.viterbi_path.launches
+    card = mshds.extract_mshds_arrays(xs, 16000, device=cuda_device)
+    assert viterbi.viterbi_path.launches - before == 2 + 3 * 2  # both range groups
+    cpu = mshds.extract_mshds_arrays(xs, 16000, device="cpu")
+    np.testing.assert_array_equal(np.isnan(card), np.isnan(cpu))
+    assert np.isfinite(cpu).sum() >= 70
+    for k, name in enumerate(mshds.FEATURE_NAMES):
+        rtol, atol = chip_smoke.MSHDS_TOL[name]
+        np.testing.assert_allclose(card[:, k], cpu[:, k], rtol=rtol, atol=atol, err_msg=name)

@@ -275,7 +275,8 @@ def _toy(n=4, t=12, d=6):
 
 def test_corpus_budget_bytes(monkeypatch):
     """A quarter of the card's memory; the 4 GiB literal on the CPU; the
-    environment variable over both."""
+    environment variable over both, and an error where it is not a positive
+    integer (the JAX package ignores a malformed value)."""
     monkeypatch.delenv("RSAF_CORPUS_BUDGET_BYTES", raising=False)
     assert dl_cv._corpus_budget_bytes(torch.device("cpu")) == 4 << 30 \
         == jax_dl_cv._CORPUS_BUDGET_FALLBACK_BYTES
@@ -289,7 +290,32 @@ def test_corpus_budget_bytes(monkeypatch):
     assert dl_cv._corpus_budget_bytes(torch.device("cuda", 0)) == 12345
     assert dl_cv._corpus_budget_bytes(torch.device("cpu")) == 12345
     monkeypatch.setenv("RSAF_CORPUS_BUDGET_BYTES", "a lot")
-    assert dl_cv._corpus_budget_bytes(torch.device("cpu")) == 4 << 30
+    with pytest.raises(ValueError, match="RSAF_CORPUS_BUDGET_BYTES"):
+        dl_cv._corpus_budget_bytes(torch.device("cpu"))
+
+
+@pytest.mark.parametrize("value", ["a lot", "1e9", "12.5", "0", "-4096"])
+def test_corpus_budget_rejects_what_is_not_a_positive_integer(monkeypatch, value):
+    """A malformed, zero or negative override raises on the CPU and on the
+    card alike; it never turns the resident corpus off quietly."""
+    monkeypatch.setenv("RSAF_CORPUS_BUDGET_BYTES", value)
+    for dev in (torch.device("cpu"), torch.device("cuda", 0)):
+        with pytest.raises(ValueError, match="RSAF_CORPUS_BUDGET_BYTES"):
+            dl_cv._corpus_budget_bytes(dev)
+    with pytest.raises(ValueError, match="RSAF_CORPUS_BUDGET_BYTES"):
+        dl_cv._as_device_corpus(_toy(), "cpu")
+
+
+def test_corpus_budget_override_is_used(monkeypatch):
+    """A valid override decides residency: a budget just above the corpus
+    keeps it on the device, one just below streams it from the host."""
+    X = _toy()
+    size = loops.DeviceCorpus.nbytes_estimate(X)
+    monkeypatch.setenv("RSAF_CORPUS_BUDGET_BYTES", str(size))
+    assert dl_cv._corpus_budget_bytes(torch.device("cpu")) == size
+    assert isinstance(dl_cv._as_device_corpus(X, "cpu"), loops.SeqView)
+    monkeypatch.setenv("RSAF_CORPUS_BUDGET_BYTES", str(size - 1))
+    assert dl_cv._as_device_corpus(X, "cpu") is X
 
 
 def test_over_budget_corpus_streams_from_host(monkeypatch):

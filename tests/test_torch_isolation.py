@@ -17,10 +17,16 @@ import torch
 
 from robust_speech_analysis_framework_tpu_torch.device import resolve_device
 from robust_speech_analysis_framework_tpu_torch.eval import dl_cv
+from robust_speech_analysis_framework_tpu_torch.features.mshds import (
+    extract_mshds_arrays,
+    extract_mshds_single,
+)
 from robust_speech_analysis_framework_tpu_torch.features.opensmile import OpenSmileExtractor
 from robust_speech_analysis_framework_tpu_torch.features.wav2vec2 import Wav2Vec2Extractor
 from robust_speech_analysis_framework_tpu_torch.models.cnn_lstm import build_cnn_lstm
 from robust_speech_analysis_framework_tpu_torch.models.wav2vec2 import Wav2Vec2Config
+from robust_speech_analysis_framework_tpu_torch.ops.cepstrum import cpps_segments_batch
+from robust_speech_analysis_framework_tpu_torch.ops.formants import formant_track_burg_batch
 from robust_speech_analysis_framework_tpu_torch.ops.framing import corpus_buffer
 from robust_speech_analysis_framework_tpu_torch.ops.harmonicity import harmonicity_cc_batch
 from robust_speech_analysis_framework_tpu_torch.ops.intensity import intensity_contour_batch
@@ -30,6 +36,7 @@ from robust_speech_analysis_framework_tpu_torch.ops.pitch import (
     pitch_track_batch,
 )
 from robust_speech_analysis_framework_tpu_torch.ops.pulses import point_process_cc_batch
+from robust_speech_analysis_framework_tpu_torch.ops.spectral import voiced_mean_moments_batch
 from robust_speech_analysis_framework_tpu_torch.serving import Predictor
 from robust_speech_analysis_framework_tpu_torch.train.loops import (
     DeviceCorpus,
@@ -70,7 +77,7 @@ def test_port_imports_no_jax():
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 43  # every module of the port so far was imported
+    assert n_modules >= 48  # every module of the port so far was imported
 
 
 def test_chip_smoke_fails_without_a_card():
@@ -92,7 +99,8 @@ def _tiny_cv_inputs():
 @pytest.mark.parametrize(
     "entry", ["extractor", "cnn_lstm", "predictor", "trainer", "device", "opensmile",
               "device_corpus", "resident_corpus", "standard_cv", "nested_cv", "corpus_buffer",
-              "pitch_batch", "intensity_batch", "harmonicity_batch", "pulses_batch"])
+              "pitch_batch", "intensity_batch", "harmonicity_batch", "pulses_batch",
+              "moments_batch", "formants_batch", "cpps_batch", "mshds_arrays", "mshds_single"])
 def test_entry_points_default_to_cuda(entry):
     hp = {"learning_rate": 1e-3, "cnn_out_channels": 8, "lstm_hidden_dim": 8}
     wave = [np.sin(np.arange(4000) / 10.0)]  # 0.25 s at 16 kHz
@@ -130,6 +138,15 @@ def test_entry_points_default_to_cuda(entry):
             wave, 16000) else None,
         "pulses_batch": lambda: torch.device("cuda") if point_process_cc_batch(
             wave, 16000, [track]) else None,
+        # the MSHDS second half and the whole extractor
+        "moments_batch": lambda: torch.device("cuda") if voiced_mean_moments_batch(
+            wave, 16000, [lambda t: np.ones(len(t), bool)]) else None,
+        "formants_batch": lambda: torch.device("cuda") if formant_track_burg_batch(
+            wave, 16000) else None,
+        "cpps_batch": lambda: torch.device("cuda") if cpps_segments_batch(
+            [(wave[0], [(0.0, 0.25)])], 10000.0) else None,
+        "mshds_arrays": lambda: torch.device("cuda") if extract_mshds_arrays(wave).size else None,
+        "mshds_single": lambda: torch.device("cuda") if extract_mshds_single(wave[0]) else None,
     }[entry]
     if torch.cuda.is_available():
         assert build().type == "cuda"
