@@ -129,6 +129,7 @@ import json
 import os
 import re
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
@@ -1404,12 +1405,12 @@ def viterbi_kernel_phase(dev: torch.device) -> dict:
     return records
 
 
-def _speech(seconds: float, f0: float, seed: int) -> np.ndarray:
-    """Speech-like 16 kHz audio: 11 harmonics with 3 Hz vibrato, syllable
-    gating, a little noise, quantised to 16-bit PCM (the recipe of
-    benchmarks/suite.py:31-43, with the vibrato's phase integrated)."""
+def _speech(seconds: float, f0: float, seed: int, sr: int = SR) -> np.ndarray:
+    """Speech-like audio at ``sr`` (16 kHz by default): 11 harmonics with 3 Hz
+    vibrato, syllable gating, a little noise, quantised to 16-bit PCM (the
+    recipe of benchmarks/suite.py:31-43, with the vibrato's phase integrated)."""
     rng = np.random.default_rng(seed)
-    t = np.arange(int(seconds * SR)) / SR
+    t = np.arange(int(seconds * sr)) / sr
     # 3 Hz vibrato of ±1 % as a true frequency modulation: the benchmark's
     # phase f0·(1 + 0.01·sin)·t sweeps ±0.19·f0·t Hz, so its files stop
     # being voiced after a few seconds
@@ -1805,6 +1806,300 @@ def mshds_card_vs_cpu(card: np.ndarray, cpu: np.ndarray, seconds, f0s) -> None:
         raise AssertionError(f"MSHDS features on the card disagree with the CPU: {bad}")
 
 
+# --- w2v: the extraction that feeds the main path -------------------------------
+
+W2V_PARTICIPANTS = 24  # 12 Control, 12 Patient
+W2V_READING_S = (20.0, 40.0)
+W2V_CLIP_S = (3.0, 12.0)
+W2V_SHORT_CHUNK_S = 8.9  # chunks of 5, 4.9 and 0.9 s: a short chunk that is not the last
+W2V_CONFIG = Wav2Vec2Config()  # Wav2Vec2-base at its full width: 12 layers, 768 wide
+W2V_BATCH = 16
+W2V_CV = dict(n_splits=2, epochs=2, patience=25, batch_size=8, seed=42)
+W2V_RESIDENT_TOL = 1e-6  # resident buffer vs the float32 download: the same batches, copies
+W2V_CV_TOL = 1e-5  # first-epoch losses: the extractor's resident corpus vs an upload
+W2V_EMB_TOL = 1e-5  # embeddings vs the per-file mean of the float32 sequences
+W2V_PREDICT_TOL = 1e-6  # predict_files (native decode) vs the Python codec, a PCM file
+W2V_TRANSFERS = {"int16": np.int16, "int24": "int24", "int8": np.int8, "float16": np.float16}
+
+
+def _write_float_wav(path: str, samples: np.ndarray, sample_rate: int) -> None:
+    """A mono IEEE-float32 WAV (format code 3)."""
+    data = np.asarray(samples, "<f4").tobytes()
+    with open(path, "wb") as fh:
+        fh.write(b"RIFF" + struct.pack("<I", 36 + len(data)) + b"WAVEfmt ")
+        fh.write(struct.pack("<IHHIIHH", 16, 3, 1, sample_rate, 4 * sample_rate, 4, 32))
+        fh.write(b"data" + struct.pack("<I", len(data)) + data)
+
+
+def _androids_tree(root: str) -> dict:
+    """A seeded synthetic Androids corpus under ``root``: W2V_PARTICIPANTS
+    sessions (Control and Patient in turn), one reading WAV of 20–40 s each,
+    2–3 interview clips of 3–12 s each (participant 01's first is 8.9 s), a
+    two-header-row fold-lists.csv (the interview columns repeat the reading
+    ones, as pandas-mangled ``foldN.1``). Mostly 16 kHz 16-bit mono; every
+    sixth reading file and some clips 44.1 kHz 16-bit stereo; one reading
+    file and one clip IEEE float32. Returns each file's format by name."""
+    rng = np.random.default_rng(12)
+    formats, folds = {}, [[] for _ in range(10)]
+
+    def write(path: str, seconds: float, fmt: str) -> None:
+        f0, seed = float(rng.uniform(95, 230)), int(rng.integers(1 << 30))
+        if fmt == "stereo44k":
+            x = _speech(seconds, f0, seed, sr=44100)
+            write_wav(path, np.stack([x, 0.8 * x], axis=1), 44100)
+        elif fmt == "float32":
+            x = _speech(seconds, f0, seed) + 1e-5 * rng.standard_normal(int(seconds * SR))
+            _write_float_wav(path, x.astype(np.float32), SR)
+        else:
+            write_wav(path, _speech(seconds, f0, seed), SR)
+        formats[os.path.basename(path)] = fmt
+
+    for k in range(W2V_PARTICIPANTS):
+        cond = "CP"[k % 2]
+        session = f"{k + 1:02d}_{cond}{'MF'[k % 3 > 0]}{20 + k:02d}_{k % 5 + 1}"
+        rdir = os.path.join(root, "Reading-Task", "audio", "HC" if cond == "C" else "PT")
+        os.makedirs(rdir, exist_ok=True)
+        fmt = "stereo44k" if k % 6 == 1 else "float32" if k == 4 else "pcm16"
+        write(os.path.join(rdir, session + ".wav"), float(rng.uniform(*W2V_READING_S)), fmt)
+        cdir = os.path.join(root, "Interview-Task", "audio_clip", session)
+        os.makedirs(cdir, exist_ok=True)
+        for c in range(2 + k % 2):
+            seconds = W2V_SHORT_CHUNK_S if k == c == 0 else float(rng.uniform(*W2V_CLIP_S))
+            fmt = ("stereo44k" if k % 6 == 3 and c == 1 else
+                   "float32" if k == 7 and c == 0 else "pcm16")
+            write(os.path.join(cdir, f"{session}_{c}.wav"), seconds, fmt)
+        folds[k % 5].append(session + ".wav")
+        folds[5 + k % 5].append(session)
+    with open(os.path.join(root, "fold-lists.csv"), "w") as fh:
+        fh.write("Androids corpus folds\n" + ",".join([f"fold{j}" for j in range(1, 6)] * 2) + "\n")
+        for i in range(max(map(len, folds))):
+            fh.write(",".join(col[i] if i < len(col) else "" for col in folds) + "\n")
+    return formats
+
+
+def _synced(fn):
+    """(result, wall seconds) of ``fn`` between two synchronisations."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def w2v_phase(dev: torch.device, tmp: str) -> dict:
+    """The extraction that feeds the main path: a synthetic Androids corpus
+    loaded through the array core, decoded natively, its interview clips
+    extracted by a full-width Wav2Vec2-base straight into a device buffer,
+    regrouped per participant on the device and adopted by the standard CV
+    engine; checked against the float32 download, host aggregation, the
+    transfer dtypes' contracts, the embeddings and predict_files. Returns
+    the CV run's launches."""
+    from robust_speech_analysis_framework_tpu_torch.audio import native_io
+    from robust_speech_analysis_framework_tpu_torch.audio.io import load_files_mono_16k
+    from robust_speech_analysis_framework_tpu_torch.data.aggregate import (
+        concat_groups,
+        participant_clips,
+    )
+    from robust_speech_analysis_framework_tpu_torch.data.corpus import load_androids_rows
+
+    t0 = time.perf_counter()
+    formats = _androids_tree(tmp)
+    reading, interview = load_androids_rows(tmp, verbose=False)
+    log(f"[w2v] corpus: {len(reading)} reading files, {len(interview)} interview clips "
+        f"({collections.Counter(formats.values())}), written and loaded in "
+        f"{time.perf_counter() - t0:.2f} s")
+    if not (len(reading) == W2V_PARTICIPANTS and len(interview) == len(formats) - len(reading)
+            and all(r["fold"] > 0 for r in reading + interview)):
+        raise AssertionError("the corpus rows do not match the tree written")
+
+    # --- native decode
+    t0 = time.perf_counter()
+    native_io.load_library()
+    log(f"[w2v] native decoder built and loaded in {time.perf_counter() - t0:.2f} s "
+        f"({os.path.relpath(native_io._library_path())})")
+    paths = [r["filepath"] for r in reading + interview]
+    t0 = time.perf_counter()
+    decoded = native_io.decode_batch_mono(paths)
+    decode_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    waves = native_io.load_corpus_mono_16k(paths)
+    load_s = time.perf_counter() - t0
+    audio_s = sum(len(w) for w in waves.values()) / SR
+    log(f"[w2v] decode_batch_mono: {len(paths)} files in {decode_s:.3f} s "
+        f"({len(paths) / decode_s:.1f} files/s, {audio_s / decode_s:.1f} audio-s/s); "
+        f"load_corpus_mono_16k (decode + resample to 16 kHz): {load_s:.3f} s "
+        f"({len(paths) / load_s:.1f} files/s, {audio_s / load_s:.1f} audio-s/s)")
+    if any(d is None for d in decoded) or len(waves) != len(paths):
+        raise AssertionError("the native decoder failed on a file of the corpus")
+    clips = {r["filename"]: waves[r["filename"]] for r in interview}
+    clip_s = sum(len(w) for w in clips.values()) / SR
+
+    # --- extraction at every transfer dtype
+    extractor = Wav2Vec2Extractor(config=W2V_CONFIG, allow_random_init=True, seed=0,
+                                  batch_size=W2V_BATCH, device=dev)
+    params = extractor.model.state_dict()
+
+    def variant(**kw):
+        return Wav2Vec2Extractor(params=params, config=W2V_CONFIG, batch_size=W2V_BATCH,
+                                 device=dev, **kw)
+
+    downloaded = [0]
+    real_download = Wav2Vec2Extractor._download
+
+    def counting_download(self, payload, stream):
+        downloaded[0] += sum(t.numel() * t.element_size() for t in payload)
+        return real_download(self, payload, stream)
+
+    variants = {"float32": {}, "int16-upload": {"upload_dtype": np.int16},
+                **{k: {"sequence_transfer_dtype": v} for k, v in W2V_TRANSFERS.items()},
+                "bfloat16": {"compute_dtype": "bfloat16"}}
+    torch.cuda.reset_peak_memory_stats(dev)
+    _, first_s = _synced(lambda: extractor.extract_sequences(clips, verbose=False))
+    out, walls = {}, {}
+    Wav2Vec2Extractor._download = counting_download
+    try:
+        for label, kw in variants.items():
+            ex = variant(**kw)
+            if label == "bfloat16":  # cuDNN's and cuBLAS's bfloat16 plans, outside the timing
+                ex.extract_sequences(dict(list(clips.items())[:2]), verbose=False)
+            downloaded[0] = 0
+            out[label], walls[label] = _synced(lambda: ex.extract_sequences(clips, verbose=False))
+            log(f"[w2v] extract_sequences {label}: {walls[label]:.3f} s, "
+                f"{clip_s / walls[label]:.1f} audio-s/s, {downloaded[0] / clip_s:.1f} bytes "
+                f"downloaded per audio-s ({len(clips)} clips, {clip_s:.1f} audio-s)")
+    finally:
+        Wav2Vec2Extractor._download = real_download
+    f32 = out["float32"]
+    log(f"[w2v] first float32 extraction (cold): {first_s:.3f} s")
+
+    # --- the resident path, beside extract_sequences + a ResidentCorpus upload
+    res, res_s = _synced(lambda: extractor.extract_sequences_resident(clips, verbose=False))
+    uploaded, up_s = _synced(lambda: loops.ResidentCorpus(f32, device=dev).device_corpus())
+    err = float((res.x - uploaded.x).abs().max()) if res.x.shape == uploaded.x.shape else np.inf
+    log(f"[w2v] extract_sequences_resident: {res_s:.3f} s ({clip_s / res_s:.1f} audio-s/s) "
+        f"into {tuple(res.x.shape)}; extract_sequences {walls['float32']:.3f} s + ResidentCorpus "
+        f"upload {up_s:.3f} s = {walls['float32'] + up_s:.3f} s into "
+        f"{tuple(uploaded.x.shape)}; max|d|={err:.3e} (tol {W2V_RESIDENT_TOL})")
+    if not (res.names == list(f32) and err <= W2V_RESIDENT_TOL):
+        raise AssertionError("the resident buffer disagrees with the float32 download")
+    groups = participant_clips(interview)
+    grp, regroup_s = _synced(lambda: res.regroup(groups))
+    host = concat_groups(f32, groups)
+    want = loops.ResidentCorpus(host, device=dev).device_corpus()
+    equal = grp.names == list(host) and torch.equal(grp.x, want.x)
+    log(f"[w2v] regroup into {len(grp)} participants {tuple(grp.x.shape)}: {regroup_s * 1e3:.3f} "
+        f"ms; equal to the host concatenation of the downloads, uploaded: {equal}")
+    if not equal:
+        raise AssertionError("the regrouped buffer differs from host aggregation")
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    log(f"[w2v] peak memory of the extractions: {peak_gib:.3f} GiB")
+
+    # --- the CV engine on the extractor's corpus
+    label_of = {r["unique_participant_id"]: r["label"] for r in interview}
+    y = np.asarray([label_of[p] == "Patient" for p in grp.names], np.int64)
+    X = loops.DeviceCorpus.from_resident(grp).view(np.arange(len(grp)))
+    counters = _counters()
+    with _CvProbe() as probe:
+        for fn in counters.values():
+            fn.launches = 0
+        (results, preds, hists, weights), cv_s = _synced(
+            lambda: dl_cv.standard_kfold_cv(X, y, FLAGSHIP_HP, device=dev, **W2V_CV))
+        launches = {name: fn.launches for name, fn in counters.items()}
+        _check_cv_launches("w2v", launches, probe)
+        uploads = list(probe.uploads)
+    limit = 8 * len(y) * W2V_CV["epochs"]
+    log(f"[w2v] standard_kfold_cv over the extractor's corpus: {cv_s:.3f} s; uploads during "
+        f"the folds: {len(uploads)} arrays, largest {max(uploads)} B (limit {limit} B)")
+    if max(uploads) > limit:
+        raise AssertionError("a CV fold uploaded more than its labels and batch plan")
+    ok = (len(results) == W2V_CV["n_splits"] and np.isfinite(weights).all()
+          and all(np.isfinite(h["train"] + h["val"]).all() for h in hists)
+          and sum(len(p["y_true"]) for p in preds) == len(y))
+    if not ok:
+        raise AssertionError("the CV results over the extractor's corpus are not finite")
+    _, _, hists_up, _ = dl_cv.standard_kfold_cv(want.view(np.arange(len(grp))), y, FLAGSHIP_HP,
+                                                device=dev, **dict(W2V_CV, epochs=1))
+    first = (hists[0]["train"][0], hists[0]["val"][0])
+    again = (hists_up[0]["train"][0], hists_up[0]["val"][0])
+    err = max(abs(a - b) for a, b in zip(first, again))
+    log(f"[w2v] fold 1 first-epoch train/val loss: extractor's corpus {first}, uploaded "
+        f"sequences {again}: max|d|={err:.3e} (tol {W2V_CV_TOL})")
+    if not err <= W2V_CV_TOL:
+        raise AssertionError("training on the extractor's corpus differs from the upload")
+
+    # --- the transfer dtypes against the card's own float32 path
+    def cos(a, b):
+        a, b = a.astype(np.float64).ravel(), b.astype(np.float64).ravel()
+        return float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b)))
+
+    bad = []
+    for name, a in f32.items():
+        fmax = np.abs(a).max(axis=1, keepdims=True)
+        d16 = np.abs(a - out["int16"][name])
+        if not (np.linalg.norm(d16) / np.linalg.norm(a) <= 1e-4
+                and (d16 <= fmax * (1.0 / 65534.0 + 2e-6) + 1e-9).all()):
+            bad.append(("int16", name))
+        floor = 1e-3 * float(np.abs(a).max())
+        if not np.max(np.abs(a - out["int24"][name]) / np.maximum(np.abs(a), floor)) <= 1e-4:
+            bad.append(("int24", name))
+        if not ((np.abs(a - out["int8"][name]) <= fmax / 254.0 + 1e-3 * fmax + 1e-7).all()
+                and cos(a, out["int8"][name]) > 0.9999):
+            bad.append(("int8", name))
+        for label in ("float16", "bfloat16"):
+            if not 1.0 - cos(a, out[label][name]) <= 1e-2:
+                bad.append((label, name))
+    worst = {label: min(cos(a, out[label][n]) for n, a in f32.items())
+             for label in ("int8", "float16", "bfloat16")}
+    lattice = {n: w for n, w in clips.items() if formats[n] == "pcm16"}
+    a = extractor.extract_sequences(lattice, verbose=False)
+    b = variant(upload_dtype=np.int16).extract_sequences(lattice, verbose=False)
+    upload_equal = all(np.array_equal(a[n], b[n]) for n in a)
+    log(f"[w2v] transfer contracts vs the float32 path: {len(bad)} violations {bad[:4]}; "
+        f"lowest cosine {worst}; int16 upload bit-equal on {len(lattice)} PCM clips: "
+        f"{upload_equal}")
+    if bad or not upload_equal:
+        raise AssertionError("a transfer dtype breaks its contract")
+
+    # --- embeddings and one predict_files request
+    (names, means), emb_s = _synced(lambda: extractor.extract_embeddings_arrays(clips,
+                                                                                verbose=False))
+    err = float(np.abs(means - np.stack([f32[n].mean(0) for n in names])).max())
+    log(f"[w2v] extract_embeddings_arrays: {emb_s:.3f} s ({clip_s / emb_s:.1f} audio-s/s), "
+        f"{means.shape}; vs the float32 sequences' means max|d|={err:.3e} (tol {W2V_EMB_TOL})")
+    if not (names == list(f32) and err <= W2V_EMB_TOL):
+        raise AssertionError("the embeddings disagree with the sequences' means")
+    predictor = Predictor(build_cnn_lstm(W2V_CONFIG.hidden_size, 128, 128, seed=0, device=dev),
+                          extractor=extractor, device=dev)
+    row = next(r for r in interview if formats[r["filename"]] == "stereo44k")
+    native = predictor.predict_files([row["filepath"]])[row["filename"]].logits
+    seq = extractor.extract_sequences(load_files_mono_16k([row["filepath"]]),
+                                      verbose=False)[row["filename"]]
+    codec = predictor.predict_sequence(seq).logits
+    err = float(np.abs(native - codec).max())
+    log(f"[w2v] predict_files({row['filename']}, 44.1 kHz stereo): logits {native} via the "
+        f"native decoder, {codec} via the Python codec: max|d|={err:.3e} (tol {W2V_PREDICT_TOL})")
+    if not err <= W2V_PREDICT_TOL:
+        raise AssertionError("predict_files through the native decoder changed its answer")
+
+    # --- where an encoder batch spends the card's time
+    rng = np.random.default_rng(0)
+    batch = torch.from_numpy(rng.standard_normal((W2V_BATCH, extractor.chunk_size),
+                                                 dtype=np.float32) * 0.1).to(dev)
+    lengths = torch.full((W2V_BATCH,), extractor.chunk_size, dtype=torch.int32, device=dev)
+
+    def encode():
+        with torch.no_grad():
+            extractor.model(batch, lengths)
+
+    encode_ms = cuda_ms(encode, 3)
+    log(f"[w2v] one encoder batch ({W2V_BATCH} x {extractor.chunk_size} samples, float32): "
+        f"{encode_ms:.3f} ms (CUDA events, mean of 3), "
+        f"{W2V_BATCH * extractor.chunk_size / SR / (encode_ms / 1e3):.1f} audio-s/s")
+    profile_device(f"one encoder batch ({W2V_BATCH} x {extractor.chunk_size} samples, float32)",
+                   encode, 14)
+    return launches
+
+
 def ptxas_report(text: str) -> list:
     """One line per kernel of ptxas's verbose output: its name with the
     integer template arguments, its registers and its spill bytes."""
@@ -1914,6 +2209,8 @@ def run(dev: torch.device, smi: str) -> None:
         serving = serving_phase(dev, tmp)
     training, streaming_step_ms = training_phase(dev)
     cv, cv_lanes = cv_phase(dev, streaming_step_ms)
+    with tempfile.TemporaryDirectory() as tmp:
+        w2v = w2v_phase(dev, tmp)
     parity_phase(dev)
     opensmile = opensmile_phase(dev)
     mshds = mshds_phase(dev, records)
@@ -1931,7 +2228,7 @@ def run(dev: torch.device, smi: str) -> None:
         rec = records[name]
         by_path = {"serving": serving[name], "training": training[name], "cv": cv[name],
                    "cv-lanes": cv_lanes[name], "opensmile": opensmile[name],
-                   "mshds": mshds[name]}
+                   "mshds": mshds[name], "w2v": w2v[name]}
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(by_path.values()),

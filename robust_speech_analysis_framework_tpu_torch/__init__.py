@@ -8,11 +8,14 @@ hand-written CUDA kernel under ``csrc/``, built with nvcc at first use; what
 XLA computed becomes plain PyTorch.
 
 Ported so far: the serving path, CNN-LSTM training and its cross-validation
-engines, openSMILE-912 and MSHDS-25 extraction:
+engines, openSMILE-912, MSHDS-25 and Wav2Vec2 extraction, and the corpus
+loader:
 
-  audio/      WAV IO, polyphase resampling (torch and numpy), the STFT/mel/MFCC
-              front end
-  data/       bucketed batching (numpy)
+  audio/      WAV IO (a Python codec and the native batch decoder), polyphase
+              resampling (torch and numpy), the STFT/mel/MFCC front end
+  native/     the C++ WAV decoder, built with g++ at first use
+  data/       bucketed batching (numpy), the Androids corpus loader,
+              per-participant aggregation
   ops/        spectral LLDs, functionals, SHS pitch, the host period march; the
               corpus buffer and deferred results (framing.py), Praat pitch,
               intensity, harmonicity, the glottal-pulse march, spectral
@@ -20,8 +23,9 @@ engines, openSMILE-912 and MSHDS-25 extraction:
   ops/cuda/   the LSTM kernels (csrc/lstm_scan.cu, csrc/lstm_train.cu) and the
               Viterbi path finder (csrc/viterbi.cu), each with its plain version
   models/     CNN-LSTM, Wav2Vec2-base, weight carry from the JAX package
-  features/   Wav2Vec2 sequences, openSMILE-912 and MSHDS-25 features, the conf
-              parser
+  features/   Wav2Vec2 sequences (quantised downloads, the bf16 preset, resident
+              extraction) and embeddings, openSMILE-912 and MSHDS-25 features,
+              the conf parser
   train/      the fold trainer (streaming and device-resident) and checkpoints
   eval/       splits, metrics and the CNN-LSTM cross-validation engines
   tune/       the TPE sampler

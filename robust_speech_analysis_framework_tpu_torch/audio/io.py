@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import os
 import struct
-from typing import Dict, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 
@@ -125,16 +125,10 @@ def load_mono_16k(path: str, target_sr: int = 16000) -> np.ndarray:
     return mono.astype(np.float32)
 
 
-def load_files_mono_16k(
-    paths: Sequence[str], target_sr: int = 16000
-) -> Dict[str, np.ndarray]:
-    """Decode a list of files → {basename: mono ``target_sr`` waveform}.
-
-    Files that cannot be read or decoded are absent from the result (the
-    caller reports them). Raises on duplicate basenames: results are keyed
-    by bare filename, so a silent overwrite would give one file's audio to
-    another.
-    """
+def unique_basenames(paths: Sequence[str]) -> List[str]:
+    """The basename of each path; raises on duplicates, since decoded audio
+    is keyed by bare filename and a silent overwrite would give one file's
+    audio to another."""
     names = [os.path.basename(p) for p in paths]
     dupes = {n for n in names if names.count(n) > 1}
     if dupes:
@@ -142,8 +136,20 @@ def load_files_mono_16k(
             f"duplicate basenames across input paths: {sorted(dupes)[:5]} — "
             "results are keyed by basename; disambiguate the filenames"
         )
+    return names
+
+
+def load_files_mono_16k(
+    paths: Sequence[str], target_sr: int = 16000
+) -> Dict[str, np.ndarray]:
+    """Decode a list of files → {basename: mono ``target_sr`` waveform}.
+
+    Files that cannot be read or decoded are absent from the result (the
+    caller reports them). Raises on duplicate basenames
+    (:func:`unique_basenames`).
+    """
     out: Dict[str, np.ndarray] = {}
-    for name, path in zip(names, paths):
+    for name, path in zip(unique_basenames(paths), paths):
         try:
             out[name] = load_mono_16k(path, target_sr)
         except (OSError, ValueError, struct.error):

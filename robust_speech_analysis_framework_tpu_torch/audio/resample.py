@@ -5,7 +5,7 @@ polyphase half: a Kaiser-windowed sinc low-pass (``design_lowpass``,
 aligned by ``_aligned_filter`` like ``scipy.signal.resample_poly``), applied
 by :func:`resample_poly` as one strided ``conv1d`` over the zero-stuffed
 signal on the tensor's device, and by :func:`resample_poly_np` in numpy
-float64 on the host.
+float64 on the host (polyphase: only the taps that meet an input sample).
 """
 
 from __future__ import annotations
@@ -96,9 +96,14 @@ def resample_poly(x: torch.Tensor, up: int, down: int, half_width: int = 10) -> 
 
 
 def resample_poly_np(x: np.ndarray, up: int, down: int, half_width: int = 10) -> np.ndarray:
-    """Polyphase resample ``x`` (..., T) by rational factor up/down.
+    """Polyphase resample ``x`` (..., T) by rational factor up/down, in float64.
 
-    Output length is ``ceil(T * up / down)``.
+    Output length is ``ceil(T * up / down)``. Output k is sample
+    m = (n_pre_remove + k)·down of the full convolution of the zero-stuffed
+    signal with the filter, summed over the ⌈len(h)/up⌉ input samples that
+    meet a filter tap (i = ⌊m/up⌋ − r, tap m − i·up): the values of the
+    JAX package's ``np.convolve`` of the whole stuffed signal, added in
+    another order, at len(h)/up of its cost.
     """
     x = np.asarray(x)
     g = math.gcd(up, down)
@@ -107,12 +112,15 @@ def resample_poly_np(x: np.ndarray, up: int, down: int, half_width: int = 10) ->
         return x
     h, n_pre_remove = _aligned_filter(up, down, half_width)
     t = x.shape[-1]
-    stuffed = np.zeros(x.shape[:-1] + (t * up,), dtype=np.float64)
-    stuffed[..., ::up] = x
-    full = np.apply_along_axis(lambda v: np.convolve(v, h, mode="full"), -1, stuffed)
     n_out = -(-t * up // down)
-    picked = full[..., ::down][..., n_pre_remove : n_pre_remove + n_out]
-    if picked.shape[-1] < n_out:
-        picked = np.pad(picked, [(0, 0)] * (picked.ndim - 1) + [(0, n_out - picked.shape[-1])])
+    rows = x.reshape(-1, t).astype(np.float64)
+    m = (n_pre_remove + np.arange(n_out)) * down
+    first = m // up  # the latest input sample at or before m
+    phase = m - first * up
+    out = np.zeros((rows.shape[0], n_out), np.float64)
+    for r in range(-(-len(h) // up)):
+        i, j = first - r, phase + r * up
+        coef = np.where((j < len(h)) & (i >= 0) & (i < t), h[np.minimum(j, len(h) - 1)], 0.0)
+        out += rows[:, np.clip(i, 0, t - 1)] * coef
     dtype = x.dtype if np.issubdtype(x.dtype, np.floating) else np.float64
-    return picked.astype(dtype)
+    return out.reshape(x.shape[:-1] + (n_out,)).astype(dtype)

@@ -10,12 +10,22 @@ over is transposes only (:mod:`.weights`).
 Batched ragged inference is exact, as in the JAX package: the convs are
 VALID, the first conv's channel norm runs over valid frames only, padded
 frames are zeroed before the positional conv, and padded keys get a -1e30
-additive bias. Attention is plain matmul + softmax in float32 (XLA computed
-it on the TPU; there is no kernel of the JAX package here).
+additive bias. Attention is plain matmul + softmax (XLA computed it on the
+TPU; there is no kernel of the JAX package here).
+
+``Wav2Vec2Config.compute_dtype="bfloat16"`` is the JAX package's reduced
+precision preset (``models/wav2vec2.py:49-57``): matmuls and convs take
+bfloat16 operands and give bfloat16 results, while the channel norm, the
+feature encoder's output, the projection and positional-conv outputs, the
+attention scores and softmax, the ``out`` and ``ff2`` outputs and every
+LayerNorm stay float32 (``:109-118``, ``:129-130``, ``:149-150``,
+``:180-194``). Weights are stored in float32 and cast at each product, as
+Flax's ``promote_dtype`` does.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Dict, Mapping, Optional, Tuple
 
@@ -39,6 +49,15 @@ class Wav2Vec2Config:
     pos_conv_kernel: int = 128
     pos_conv_groups: int = 16
     layer_norm_eps: float = 1e-5
+    # "float32" or "bfloat16": the dtype of the matmuls and convs
+    compute_dtype: str = "float32"
+
+    @property
+    def cdtype(self) -> torch.dtype:
+        if self.compute_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"compute_dtype must be 'float32' or 'bfloat16', not "
+                             f"{self.compute_dtype!r}")
+        return torch.bfloat16 if self.compute_dtype == "bfloat16" else torch.float32
 
     def output_length(self, n_samples) -> Any:
         """Conv-stack output frames for an input of ``n_samples`` samples."""
@@ -46,6 +65,31 @@ class Wav2Vec2Config:
         for k, s in zip(self.conv_kernel, self.conv_stride):
             t = (t - k) // s + 1
         return t
+
+
+def _conv(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
+          cdt: torch.dtype, **kwargs) -> torch.Tensor:
+    """``F.conv1d`` with operands and result in ``cdt`` (Flax's ``Conv(dtype=)``),
+    float32 convolutions in IEEE float32 (:func:`..device.fp32_convs`).
+
+    oneDNN's bfloat16 grouped convolution on the CPU is wrong (torch 2.13:
+    cosine 0.07 against float32 at the positional conv's shape), so a
+    bfloat16 convolution on the CPU takes ATen's own kernel.
+    """
+    args = (x.to(cdt), weight.to(cdt), None if bias is None else bias.to(cdt))
+    avoid_onednn = x.device.type == "cpu" and cdt == torch.bfloat16
+    with fp32_convs(), (_onednn_off() if avoid_onednn else contextlib.nullcontext()):
+        return F.conv1d(*args, **kwargs)
+
+
+@contextlib.contextmanager
+def _onednn_off():
+    saved = torch.backends.mkldnn.enabled
+    torch.backends.mkldnn.enabled = False
+    try:
+        yield
+    finally:
+        torch.backends.mkldnn.enabled = saved
 
 
 def _masked_channel_norm(
@@ -88,28 +132,36 @@ class FeatureEncoder(nn.Module):
         self, waveform: torch.Tensor, lengths: Optional[torch.Tensor] = None
     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         cfg = self.config
+        cdt = cfg.cdtype
         h = waveform[:, None, :]  # (B, 1, L)
         cur_lengths = lengths
         for i, (k, s) in enumerate(zip(cfg.conv_kernel, cfg.conv_stride)):
-            with fp32_convs():
-                h = getattr(self, f"conv_{i}")(h)
+            h = _conv(h, getattr(self, f"conv_{i}").weight, None, cdt, stride=s)
             if cur_lengths is not None:
                 cur_lengths = torch.div(cur_lengths - k, s, rounding_mode="floor") + 1
             if i == 0:
-                h = _masked_channel_norm(h, cur_lengths, cfg.layer_norm_eps)
+                # in float32: a bfloat16 mean/variance over ~16k frames would
+                # lose the small-variance channels
+                h = _masked_channel_norm(h.float(), cur_lengths, cfg.layer_norm_eps)
                 h = h * self.gn_scale[:, None] + self.gn_bias[:, None]
             h = F.gelu(h)
-        return h.transpose(1, 2), cur_lengths
+        return h.float().transpose(1, 2), cur_lengths
+
+
+def _dense(layer: nn.Linear, x: torch.Tensor, cdt: torch.dtype) -> torch.Tensor:
+    """``layer(x)`` with operands and result in ``cdt`` (Flax's ``Dense(dtype=)``)."""
+    return F.linear(x.to(cdt), layer.weight.to(cdt), layer.bias.to(cdt))
 
 
 class FeatureProjection(nn.Module):
     def __init__(self, config: Wav2Vec2Config):
         super().__init__()
+        self.cdtype = config.cdtype
         self.norm = nn.LayerNorm(config.conv_dim[-1], eps=config.layer_norm_eps)
         self.projection = nn.Linear(config.conv_dim[-1], config.hidden_size)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.projection(self.norm(x))
+        return _dense(self.projection, self.norm(x), self.cdtype).float()
 
 
 class PositionalConvEmbedding(nn.Module):
@@ -118,14 +170,16 @@ class PositionalConvEmbedding(nn.Module):
     def __init__(self, config: Wav2Vec2Config):
         super().__init__()
         k = config.pos_conv_kernel
+        self.cdtype = config.cdtype
         self.conv = nn.Conv1d(
             config.hidden_size, config.hidden_size, k, padding=k // 2,
             groups=config.pos_conv_groups,
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        with fp32_convs():
-            h = self.conv(x.transpose(1, 2))
+        conv = self.conv
+        h = _conv(x.transpose(1, 2), conv.weight, conv.bias, self.cdtype,
+                  padding=conv.padding, groups=conv.groups).float()
         # Even kernel + symmetric padding yields one extra frame; drop it.
         return F.gelu(h[:, :, : x.shape[1]]).transpose(1, 2)
 
@@ -137,6 +191,10 @@ class EncoderLayer(nn.Module):
         super().__init__()
         d = config.hidden_size
         self.num_heads = config.num_heads
+        self.cdtype = cdt = config.cdtype
+        # the query scale rounded to the compute dtype first, as the JAX
+        # package multiplies by jnp.asarray(head_dim**-0.5, cdt)
+        self.q_scale = float(torch.tensor((d // config.num_heads) ** -0.5, dtype=cdt))
         self.q = nn.Linear(d, d)
         self.k = nn.Linear(d, d)
         self.v = nn.Linear(d, d)
@@ -148,19 +206,20 @@ class EncoderLayer(nn.Module):
 
     def forward(self, x: torch.Tensor, attn_bias: Optional[torch.Tensor]) -> torch.Tensor:
         b, t, d = x.shape
-        heads = self.num_heads
+        heads, cdt = self.num_heads, self.cdtype
         head_dim = d // heads
         split = lambda y: y.reshape(b, t, heads, head_dim).transpose(1, 2)  # noqa: E731
-        q = split(self.q(x) * head_dim**-0.5)
-        k = split(self.k(x))
-        v = split(self.v(x))
-        scores = torch.matmul(q, k.transpose(-1, -2))  # (B, heads, T, T)
+        q = split(_dense(self.q, x, cdt) * self.q_scale)
+        k = split(_dense(self.k, x, cdt))
+        v = split(_dense(self.v, x, cdt))
+        # scores and softmax in float32 whatever the compute dtype
+        scores = torch.matmul(q, k.transpose(-1, -2)).float()  # (B, heads, T, T)
         if attn_bias is not None:
             scores = scores + attn_bias
         probs = torch.softmax(scores, dim=-1)
-        ctx = torch.matmul(probs, v).transpose(1, 2).reshape(b, t, d)
-        x = self.attn_norm(x + self.out(ctx))
-        ff = self.ff2(F.gelu(self.ff1(x)))
+        ctx = torch.matmul(probs.to(cdt), v).transpose(1, 2).reshape(b, t, d)
+        x = self.attn_norm(x + _dense(self.out, ctx, cdt).float())
+        ff = _dense(self.ff2, F.gelu(_dense(self.ff1, x, cdt)), cdt).float()
         return self.ff_norm(x + ff)
 
 

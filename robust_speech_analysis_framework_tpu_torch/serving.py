@@ -20,7 +20,7 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
-from .audio.io import load_files_mono_16k
+from .audio.native_io import load_corpus_mono_16k
 from .data.batching import pad_batch
 from .device import DeviceLike, resolve_device
 from .features.wav2vec2 import Wav2Vec2Extractor
@@ -144,13 +144,14 @@ class Predictor:
     def predict_files(
         self, paths: Sequence[str], skip_failed: bool = False
     ) -> Dict[str, Prediction]:
-        """Batch-classify WAV files (decoded and resampled to 16 kHz mono).
+        """Batch-classify WAV files (decoded by the native batch decoder and
+        resampled to 16 kHz mono, as the JAX package's ``serving.py:144``).
 
         Raises ValueError naming any file that could not be decoded or was
         too short for feature extraction (<0.5 s); pass ``skip_failed=True``
         to omit such files from the result instead.
         """
-        waves = load_files_mono_16k(paths)
+        waves = load_corpus_mono_16k(paths)
         seqs = self._require_extractor().extract_sequences(waves, verbose=False)
         failed = [os.path.basename(p) for p in paths
                   if os.path.basename(p) not in seqs]

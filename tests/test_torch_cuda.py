@@ -437,3 +437,84 @@ def test_mshds_extractor_on_card_matches_cpu(cuda_device):
     for k, name in enumerate(mshds.FEATURE_NAMES):
         rtol, atol = chip_smoke.MSHDS_TOL[name]
         np.testing.assert_allclose(card[:, k], cpu[:, k], rtol=rtol, atol=atol, err_msg=name)
+
+
+W2V_SMALL = dict(hidden_size=32, num_layers=2, num_heads=4, intermediate_size=64,
+                 conv_dim=(16,) * 7, pos_conv_kernel=16, pos_conv_groups=4)
+
+
+def _cos(a, b) -> float:
+    a, b = a.astype(np.float64).ravel(), b.astype(np.float64).ravel()
+    return float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b)))
+
+
+def test_wav2vec2_extraction_on_card_matches_cpu(cuda_device):
+    """The Wav2Vec2 extractor's paths on the card (the pinned, three-stream
+    pipeline): float32 sequences vs the CPU to 1e-4; the resident buffer
+    and its regrouping equal to the card's own downloads and their host
+    concatenation, bit for bit; the transfer dtypes and bfloat16 within the
+    JAX package's contracts of the card's float32 path; embeddings the
+    per-file means to 1e-5."""
+    from robust_speech_analysis_framework_tpu_torch.data.aggregate import participant_clips
+    from robust_speech_analysis_framework_tpu_torch.features.wav2vec2 import Wav2Vec2Extractor
+    from robust_speech_analysis_framework_tpu_torch.models.wav2vec2 import Wav2Vec2Config
+
+    rng = np.random.default_rng(0)
+    waves = {f"c{i}.wav": (0.1 * rng.normal(size=int(s * 16000))).astype(np.float32)
+             for i, s in enumerate([6.2, 4.0, 8.9, 1.1, 0.3, 12.0, 3.3])}
+    with pytest.warns(UserWarning):
+        cpu = Wav2Vec2Extractor(config=Wav2Vec2Config(**W2V_SMALL), allow_random_init=True,
+                                batch_size=3, device="cpu")
+    sd = cpu.model.state_dict()
+
+    def card(**kw):
+        return Wav2Vec2Extractor(params=sd, config=Wav2Vec2Config(**W2V_SMALL), batch_size=3,
+                                 device=cuda_device, **kw)
+
+    f32 = card().extract_sequences(waves, verbose=False)
+    ref = cpu.extract_sequences(waves, verbose=False)
+    assert list(f32) == list(ref) and "c4.wav" not in f32
+    for name in ref:
+        np.testing.assert_allclose(f32[name], ref[name], rtol=0, atol=1e-4)
+
+    res = card().extract_sequences_resident(waves, verbose=False)
+    assert res.x.is_cuda and res.x.shape[1] == -(-int(res.lengths.max()) // 128) * 128
+    for name in f32:
+        np.testing.assert_array_equal(res[name], f32[name])
+    rows = [{"filename": n, "unique_participant_id": f"p{i % 3}"} for i, n in enumerate(waves)]
+    grouped = res.regroup(participant_clips(rows))
+    for pid, clips in participant_clips(rows).items():
+        np.testing.assert_array_equal(grouped[pid], np.vstack([f32[c] for c in clips
+                                                               if c in f32]))
+    x = grouped.x.cpu().numpy()
+    for i, n in enumerate(grouped.lengths):
+        assert (x[i, n:] == 0).all()
+
+    for transfer in (np.int16, "int24", np.int8, np.float16):
+        got = card(sequence_transfer_dtype=transfer).extract_sequences(waves, verbose=False)
+        for name, a in f32.items():
+            b = got[name]
+            fmax = np.abs(a).max(axis=1, keepdims=True)
+            if transfer is np.int16:
+                assert np.linalg.norm(a - b) / np.linalg.norm(a) <= 1e-4
+                assert (np.abs(a - b) <= fmax * (1.0 / 65534.0 + 2e-6) + 1e-9).all()
+            elif transfer == "int24":
+                floor = 1e-3 * float(np.abs(a).max())
+                assert np.max(np.abs(a - b) / np.maximum(np.abs(a), floor)) <= 1e-4
+            elif transfer is np.int8:
+                assert (np.abs(a - b) <= fmax / 254.0 + 1e-3 * fmax + 1e-7).all()
+                assert _cos(a, b) > 0.9999
+            else:
+                assert 1.0 - _cos(a, b) <= 1e-2
+    bf16 = card(compute_dtype="bfloat16").extract_sequences(waves, verbose=False)
+    for name, a in f32.items():
+        assert 1.0 - _cos(a, bf16[name]) <= 1e-2
+    lattice = {"pcm.wav": (rng.integers(-20000, 20000, size=70000) / 32768.0).astype(np.float32)}
+    np.testing.assert_array_equal(
+        card(upload_dtype=np.int16).extract_sequences(lattice, verbose=False)["pcm.wav"],
+        card().extract_sequences(lattice, verbose=False)["pcm.wav"])
+
+    names, means = card().extract_embeddings_arrays(waves, verbose=False)
+    assert names == list(f32)
+    np.testing.assert_allclose(means, np.stack([f32[n].mean(0) for n in names]),
+                               rtol=0, atol=1e-5)

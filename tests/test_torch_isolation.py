@@ -77,7 +77,7 @@ def test_port_imports_no_jax():
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 48  # every module of the port so far was imported
+    assert n_modules >= 51  # every module of the port so far was imported
 
 
 def test_chip_smoke_fails_without_a_card():
@@ -97,7 +97,7 @@ def _tiny_cv_inputs():
 
 
 @pytest.mark.parametrize(
-    "entry", ["extractor", "cnn_lstm", "predictor", "trainer", "device", "opensmile",
+    "entry", ["extractor", "extractor_bf16_int8", "cnn_lstm", "predictor", "trainer", "device", "opensmile",
               "device_corpus", "resident_corpus", "standard_cv", "nested_cv", "corpus_buffer",
               "pitch_batch", "intensity_batch", "harmonicity_batch", "pulses_batch",
               "moments_batch", "formants_batch", "cpps_batch", "mshds_arrays", "mshds_single"])
@@ -108,6 +108,10 @@ def test_entry_points_default_to_cuda(entry):
     build = {
         "extractor": lambda: Wav2Vec2Extractor(
             config=Wav2Vec2Config(**SMALL), allow_random_init=True).device,
+        # the transfer dtypes and the bfloat16 preset change nothing of the device
+        "extractor_bf16_int8": lambda: Wav2Vec2Extractor(
+            config=Wav2Vec2Config(**SMALL), allow_random_init=True, compute_dtype="bfloat16",
+            sequence_transfer_dtype=np.int8, upload_dtype=np.int16).device,
         "cnn_lstm": lambda: next(
             build_cnn_lstm(input_dim=8, cnn_out_channels=8, lstm_hidden_dim=8).parameters()
         ).device,
@@ -168,6 +172,24 @@ def test_opensmile_front_door_defaults_to_cuda():
     else:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             extract_opensmile_features(empty)
+
+
+@pytest.mark.parametrize("door", ["sequences", "embeddings"])
+def test_wav2vec2_front_doors_default_to_cuda(door):
+    """A front door that builds its own extractor builds it on the card."""
+    import pandas as pd
+
+    from robust_speech_analysis_framework_tpu_torch.features import wav2vec2
+
+    run = {"sequences": wav2vec2.extract_wav2vec2_sequences,
+           "embeddings": wav2vec2.extract_wav2vec2_embeddings}[door]
+    df = pd.DataFrame({"filepath": ["unread.wav"]})
+    kw = dict(config=Wav2Vec2Config(**SMALL), allow_random_init=True, waveforms={})
+    if torch.cuda.is_available():
+        assert len(run(df, **kw)) == 0
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            run(df, **kw)
 
 
 @pytest.mark.parametrize("engine", ["standard", "nested"])
