@@ -116,6 +116,28 @@ without them. Phases, each of which raises on failure:
     LTAS, CPPS), launches and host time, and the device's idle share of
     the tail's window.
 
+12. w2v (the extraction that feeds the main path): a seeded synthetic
+    Androids tree (24 participants) through the corpus loader and the
+    native decoder, a full-width Wav2Vec2-base at every transfer dtype and
+    bf16, the resident extraction, its per-participant regrouping and the
+    standard CV engine over it (see ``w2v_phase``);
+13. experiments (the reference's whole workflow, through the pandas-free
+    cores of ``experiments.py``), over phase 12's tree: MSHDS-25,
+    openSMILE-912 and a full-width random-init Wav2Vec2-base of both tasks
+    (counters reset just before and read just after: one K6 and one K7
+    launch per pitch pass or sub-batch, nothing else), the 9 SVM datasets
+    and the 18 SVM experiments on the batched SMO on the card (no kernel
+    launched; each SMO call's lanes, iterations, host syncs and ms a step)
+    against the float64 host solver (metrics 1e-9, AUC 1e-6, probabilities
+    SVM_PROB_TOL, selections equal) and bit-equal with TF32 allowed; the 6
+    CNN-LSTM experiments at the flagship's input width with
+    ``trial_batch=8`` and the 3 final models, depth cut (EXP_CUT; counters
+    reset just before and read just after: K3, K4, its pre-pass and dWh
+    twice per train or lane step, K1 twice per eval batch, no K2), 24
+    complete finite results and 3 final models that
+    ``Predictor.from_checkpoint`` loads; the wall of each extraction, of
+    the SVM half and of each CNN-LSTM experiment, and peak memory.
+
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.
 """
@@ -2100,6 +2122,311 @@ def w2v_phase(dev: torch.device, tmp: str) -> dict:
     return launches
 
 
+# --- experiments: the battery end to end ------------------------------------------
+
+# The CNN-LSTM half's depth, cut from the JAX package's defaults (5 folds,
+# 25 trials in rounds of 8, 3 inner folds of 15 epochs, 50/100 epochs):
+# one round of 8 trials, 2 folds everywhere, 2 epochs
+EXP_CUT = dict(n_trials=8, trial_batch=8, nested_epochs=2, nested_patience=10,
+               standard_epochs=2, standard_patience=25, batch_size=8, n_splits=2,
+               n_splits_outer=2, n_splits_inner=2, inner_epochs=2)
+# the card's batched SMO vs the float64 host solver, per fold: metrics
+# (no prediction flips) and AUC as tests/test_svm_cv.py:80-121 bound the JAX
+# package's device solver, selections equal. Probabilities: SVM_PROB_TOL,
+# not that test's 2e-4. The float32 and float64 solvers stop at different
+# points inside the stopping rule's 1e-3 band and Platt's slope scales the
+# decision values' difference (tests/test_torch_svm_cv.py: on separable data
+# the JAX package's own device run lies 0.134 from its host run); on this
+# corpus the card's batched run lay 3.482e-4 from the host run (H100)
+SVM_METRIC_TOL, SVM_AUC_TOL = 1e-9, 1e-6
+SVM_PROB_TOL = 2e-3
+
+
+class _SmoProbe:
+    """Records each batched SMO call of the SVM engines: lanes, per-lane
+    iterations, the loop's steps and host reads, and its wall time
+    (synchronised)."""
+
+    def __init__(self):
+        from robust_speech_analysis_framework_tpu_torch.eval import svm_cv
+        from robust_speech_analysis_framework_tpu_torch.models import svm_device
+
+        self.module, self.solver, self.real = svm_cv, svm_device, svm_cv.smo_linear_batch
+        self.calls = []
+
+    def __enter__(self):
+        def timed(X, *args, **kwargs):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            out = self.real(X, *args, **kwargs)
+            torch.cuda.synchronize()
+            self.calls.append({"lanes": X.shape[0], "shape": X.shape, "iters": out[2],
+                               "steps": self.solver.smo_linear_batch.steps,
+                               "syncs": self.solver.smo_linear_batch.syncs,
+                               "ms": (time.perf_counter() - start) * 1e3,
+                               "call": (X, args, kwargs), "out": out})
+            return out
+
+        self.module.smo_linear_batch = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.module.smo_linear_batch = self.real
+
+
+def _svm_rows_agree(name, card, host):
+    """(worst metric, worst AUC, worst probability) differences of one
+    experiment; an AssertionError where the selections differ."""
+    worst = [0.0, 0.0, 0.0]
+    for a, b in zip(card["results_df"], host["results_df"]):
+        if a["selected_features"] != b["selected_features"] or \
+                a.get("best_k_found") != b.get("best_k_found"):
+            raise AssertionError(f"{name}: the card's SMO selected other features or k")
+        worst[0] = max(worst[0], *(abs(a[m] - b[m]) for m in
+                                   ("accuracy", "f1_score", "precision", "recall")))
+        worst[1] = max(worst[1], abs(a["auc"] - b["auc"]))
+    for p, q in zip(card["predictions"], host["predictions"]):
+        worst[2] = max(worst[2], float(np.abs(p["y_prob"] - q["y_prob"]).max()))
+    return worst
+
+
+def experiments_phase(dev: torch.device, tmp: str) -> dict:
+    """The reference's whole workflow on the card through the experiment
+    cores: the w2v phase's corpus → MSHDS-25, openSMILE-912 and a full-width
+    Wav2Vec2-base → the 9 SVM datasets and 18 SVM experiments (the batched
+    SMO against the float64 host solver, and under TF32 on and off) → the 6
+    CNN-LSTM experiments at the flagship's input width (trial_batch=8, depth
+    cut) and 3 final models. Returns each kernel's launches over the phase."""
+    from robust_speech_analysis_framework_tpu_torch import experiments as exp_mod
+    from robust_speech_analysis_framework_tpu_torch.audio import native_io
+    from robust_speech_analysis_framework_tpu_torch.data.corpus import load_androids_rows
+    from robust_speech_analysis_framework_tpu_torch.ops import shs_pitch
+
+    phase_t0 = time.perf_counter()
+    reading, interview = load_androids_rows(tmp, verbose=False)
+    extractor = Wav2Vec2Extractor(config=W2V_CONFIG, allow_random_init=True, seed=0,
+                                  batch_size=W2V_BATCH, device=dev)
+
+    # --- extraction half, one core call: every extractor call timed
+    # (synchronised), K6/K7 once per pitch pass (MSHDS) or sub-batch (openSMILE)
+    calls = collections.defaultdict(list)  # label → (wall s, result) per call, reading first
+    passes = {"mshds": [], "opensmile": []}
+
+    def timed(label, fn):
+        def call(*args, **kwargs):
+            out, wall = _synced(lambda: fn(*args, **kwargs))
+            calls[label].append((wall, out))
+            return out
+        return call
+
+    def counted(label, fn):
+        def path(*args, **kwargs):
+            passes[label].append(args[0].shape)
+            return fn(*args, **kwargs)
+        return path
+
+    real_arrays = opensmile_mod.OpenSmileExtractor.extract_arrays
+    patched = [(native_io, "load_corpus_mono_16k", timed("decode", native_io.load_corpus_mono_16k)),
+               (mshds_mod, "extract_mshds_arrays", timed("mshds", mshds_mod.extract_mshds_arrays)),
+               (opensmile_mod.OpenSmileExtractor, "extract_arrays",
+                lambda self, *a, **k: timed("opensmile", real_arrays)(self, *a, **k)),
+               (extractor, "extract_sequences", timed("wav2vec2", extractor.extract_sequences)),
+               (mshds_pitch, "viterbi_path", counted("mshds", mshds_pitch.viterbi_path)),
+               (shs_pitch, "viterbi_path", counted("opensmile", shs_pitch.viterbi_path))]
+    real = [getattr(obj, name) for obj, name, _ in patched]
+    counters = _counters()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for fn in counters.values():
+        fn.launches = 0
+    for obj, name, fn in patched:
+        setattr(obj, name, fn)
+    try:
+        artifacts = [*exp_mod.TABLE_ARTIFACTS.values(), *exp_mod.SEQUENCE_ARTIFACTS.values()]
+        (tables, seqs), extract_s = _synced(lambda: exp_mod.extract_tables(
+            reading, interview, artifacts, wav2vec2_extractor=extractor, verbose=False,
+            device=dev))
+    finally:
+        for (obj, name, _), fn in zip(patched, real):
+            setattr(obj, name, fn)
+        del extractor.extract_sequences  # the bound method again
+    extract_launches = {name: fn.launches for name, fn in counters.items()}
+    peak_extract = torch.cuda.max_memory_allocated(dev) / 2**30
+    waves = {**calls["decode"][0][1], **calls["decode"][1][1]}
+    audio_s = {task: sum(len(waves[r["filename"]]) for r in rows) / SR
+               for task, rows in (("reading", reading), ("interview", interview))}
+    log(f"[experiments] corpus: {len(reading)} reading files ({audio_s['reading']:.1f} "
+        f"audio-s), {len(interview)} interview clips ({audio_s['interview']:.1f} audio-s); "
+        f"extract_tables of every artifact {extract_s:.3f} s, of it native decode "
+        f"{sum(w for w, _ in calls['decode']):.3f} s")
+    for fs in exp_mod.FEATURE_SETS:
+        for task, (wall, _) in zip(exp_mod.TASKS, calls[fs]):
+            tab = tables[exp_mod.TABLE_ARTIFACTS[fs, task]]
+            log(f"[experiments] extract {fs}/{task}: {wall:.3f} s ({audio_s[task] / wall:.1f} "
+                f"audio-s/s), table {tab.values.shape}, "
+                f"{int(np.isnan(tab.values).sum())} NaN values")
+    opensmile = opensmile_mod.OpenSmileExtractor(device=dev)
+    n_sub = 0
+    for rows in (reading, interview):
+        per_bucket = collections.Counter(opensmile._bucket_of(len(waves[r["filename"]]))
+                                         for r in rows)
+        n_sub += sum(-(-n // opensmile.pipeline_rows) for n in per_bucket.values())
+    n_paths = len(passes["mshds"]) + len(passes["opensmile"])
+    log(f"[experiments] extraction launches: {extract_launches}; pitch passes: MSHDS "
+        f"{len(passes['mshds'])} in {len(calls['mshds'])} calls (2 + 3 a range group each), "
+        f"openSMILE {len(passes['opensmile'])} (expected {n_sub} sub-batches); peak memory "
+        f"{peak_extract:.3f} GiB")
+    if not (extract_launches["viterbi_path"] == extract_launches["viterbi_forward_costs"]
+            == n_paths and sum(extract_launches.values()) == 2 * n_paths
+            and len(passes["opensmile"]) == n_sub and len(calls["mshds"]) == 2
+            and len(passes["mshds"]) in (10, 13, 16)):
+        raise AssertionError("the extractions did not launch K6/K7, and only them, once per "
+                             "pitch pass or sub-batch")
+    rows_of = {"reading": len(reading), "interview": len({r["unique_participant_id"]
+                                                         for r in interview})}
+    for (fs, task), name in exp_mod.TABLE_ARTIFACTS.items():
+        if len(tables[name].meta) != rows_of[task] or not np.isfinite(tables[name].values).any():
+            raise AssertionError(f"the {fs}/{task} table is misshapen or empty")
+
+    # --- SVM half: 9 datasets, 18 experiments on the card's batched SMO
+    t0 = time.perf_counter()
+    datasets = exp_mod.svm_datasets(
+        {fs: tables[exp_mod.TABLE_ARTIFACTS[fs, "reading"]] for fs in exp_mod.FEATURE_SETS},
+        {fs: tables[exp_mod.TABLE_ARTIFACTS[fs, "interview"]] for fs in exp_mod.FEATURE_SETS})
+    log(f"[experiments] 9 SVM datasets in {time.perf_counter() - t0:.3f} s: "
+        + ", ".join(f"{k} {d.X.shape}" for k, d in datasets.items()))
+    for fn in counters.values():
+        fn.launches = 0
+    with _SmoProbe() as smo:
+        card, svm_s = _synced(lambda: exp_mod.svm_experiments(datasets, device=dev,
+                                                              verbose=False))
+    svm_launches = sum(fn.launches for fn in counters.values())
+    for i, c in enumerate(smo.calls):
+        it = c["iters"]
+        log(f"[experiments] SMO call {i}: {c['lanes']} lanes {tuple(c['shape'])}, iterations "
+            f"median {float(np.median(it)):.0f} max {int(it.max())}, {c['steps']} steps, "
+            f"{c['syncs']} host syncs, {c['ms']:.3f} ms ({c['ms'] / c['steps']:.4f} ms a step)")
+    smo_ms = sum(c["ms"] for c in smo.calls)
+    log(f"[experiments] SVM half (18 experiments, batched SMO on the card): {svm_s:.3f} s, "
+        f"of it {len(smo.calls)} SMO calls {smo_ms / 1e3:.3f} s; kernel launches {svm_launches}")
+    # the longest call again, its steps launched one by one instead of
+    # replayed as CUDA graphs: the same bits, and what the graphs save
+    longest = max(smo.calls, key=lambda c: c["steps"])
+    X, args, kwargs = longest["call"]
+    real_loop = smo.solver._loop_graph
+    smo.solver._loop_graph = smo.solver._loop_eager
+    try:
+        eager, eager_s = _synced(lambda: smo.real(X, *args, **kwargs))
+    finally:
+        smo.solver._loop_graph = real_loop
+    same = all(np.array_equal(a, b) for a, b in zip(eager, longest["out"]))
+    log(f"[experiments] the longest SMO call ({longest['steps']} steps) eager: "
+        f"{eager_s * 1e3:.3f} ms ({eager_s * 1e3 / longest['steps']:.4f} ms a step) against "
+        f"{longest['ms']:.3f} ms replayed as graphs; bit-equal: {same}")
+    if not same:
+        raise AssertionError("the SMO's CUDA graphs changed its result")
+    host, host_s = _synced(lambda: exp_mod.svm_experiments(datasets, solver="host", device=dev,
+                                                           verbose=False))
+    log(f"[experiments] the same 18 on the float64 host solver: {host_s:.3f} s")
+    diffs = {name: _svm_rows_agree(name, card[name], host[name]) for name in host}
+    worst = np.max(list(diffs.values()), axis=0)
+    top = sorted(diffs, key=lambda k: -diffs[k][2])[:4]
+    log(f"[experiments] card SMO vs host: max |d| metrics {worst[0]:.3e} (tol "
+        f"{SVM_METRIC_TOL}), AUC {worst[1]:.3e} (tol {SVM_AUC_TOL}), y_prob {worst[2]:.3e} (tol "
+        f"{SVM_PROB_TOL}; largest: " + ", ".join(f"{k} {diffs[k][2]:.3e}" for k in top)
+        + "); selected features and best k equal")
+    if not (worst[0] <= SVM_METRIC_TOL and worst[1] <= SVM_AUC_TOL and worst[2] <= SVM_PROB_TOL):
+        raise AssertionError("the card's batched SMO disagrees with the host solver")
+    saved = _tf32_flags()
+    torch.backends.cuda.matmul.fp32_precision = "tf32"
+    torch.backends.cudnn.conv.fp32_precision = "tf32"
+    try:
+        tf32 = exp_mod.svm_experiments(datasets, device=dev, verbose=False)
+    finally:
+        torch.backends.cuda.matmul.fp32_precision, torch.backends.cudnn.conv.fp32_precision = \
+            saved[:2]
+    same = all(a["results_df"] == b["results_df"] and all(
+        np.array_equal(p["y_prob"], q["y_prob"]) for p, q in zip(a["predictions"],
+                                                                b["predictions"]))
+        for a, b in zip(card.values(), tf32.values()))
+    log(f"[experiments] the battery with TF32 allowed is bit-equal to IEEE float32: {same}")
+    n_folds = {"standard": 5, "nested": 5}
+    ok = (len(card) == 18 and svm_launches == 0 and same and all(
+        len(r["results_df"]) == n_folds[k.rsplit("_", 1)[1]] and all(
+            np.isfinite([row[m] for m in ("accuracy", "f1_score", "auc")]).all()
+            for row in r["results_df"]) for k, r in card.items()))
+    if not ok:
+        raise AssertionError("the SVM battery is incomplete, not finite, launched a kernel or "
+                             "changed under TF32")
+    for name in ("mshds_reading", "opensmile_combined", "wav2vec2_interview"):
+        for mode in ("standard", "nested"):
+            rows = card[f"{name}_{mode}"]["results_df"]
+            log(f"[experiments] {name}_{mode}: accuracy "
+                f"{np.mean([r['accuracy'] for r in rows]):.3f}, AUC "
+                f"{np.mean([r['auc'] for r in rows]):.3f}")
+
+    # --- CNN-LSTM half: 6 experiments and 3 final models on the lane-batched engines
+    sets, meta = exp_mod.sequence_sets(reading, interview,
+                                       seqs[exp_mod.SEQUENCE_ARTIFACTS["reading"]],
+                                       seqs[exp_mod.SEQUENCE_ARTIFACTS["interview"]])
+    log(f"[experiments] sequence sets: " + ", ".join(
+        f"{k} {len(v)} x (T, {W2V_CONFIG.hidden_size}) T in [{min(map(len, v.values()))}, "
+        f"{max(map(len, v.values()))}]" for k, v in sets.items())
+        + f"; depth cut to {EXP_CUT}")
+    exp_walls = []
+    real_engines = (dl_cv.nested_cv, dl_cv.standard_kfold_cv, exp_mod._train_final_model)
+
+    def timed(label, real):
+        def run(*args, **kwargs):
+            out, wall = _synced(lambda: real(*args, **kwargs))
+            exp_walls.append((label, wall))
+            return out
+        return run
+
+    dl_cv.nested_cv = timed("tuned", real_engines[0])
+    dl_cv.standard_kfold_cv = timed("standard", real_engines[1])
+    exp_mod._train_final_model = timed("final model", real_engines[2])
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    try:
+        with _CvProbe() as probe:
+            results, dl_s = _synced(lambda: exp_mod.cnn_lstm_experiments(
+                sets, meta, os.path.join(tmp, "results"), models_dir=os.path.join(tmp, "models"),
+                verbose=False, device=dev, **EXP_CUT))
+            dl_launches = {name: fn.launches for name, fn in counters.items()}
+            _check_cv_launches("experiments", dl_launches, probe)
+    finally:
+        dl_cv.nested_cv, dl_cv.standard_kfold_cv, exp_mod._train_final_model = real_engines
+    peak_dl = torch.cuda.max_memory_allocated(dev) / 2**30
+    kinds = list(sets)
+    for i, (label, wall) in enumerate(exp_walls):
+        log(f"[experiments] {label} {kinds[i // 3]}: {wall:.3f} s")
+    log(f"[experiments] CNN-LSTM half: {dl_s:.3f} s, {len(probe.lane_steps)} lane steps, "
+        f"{len(probe.steps)} train steps; peak memory {peak_dl:.3f} GiB")
+    want = {"tuned": EXP_CUT["n_splits_outer"], "standard": EXP_CUT["n_splits"]}
+    for key, r in results.items():
+        rows = r["results_df"]
+        if not (len(rows) == want[key.split("_")[0]] and all(
+                np.isfinite([row[m] for m in ("accuracy", "f1_score", "auc")]).all()
+                for row in rows) and np.isfinite(r["weights"]).all()):
+            raise AssertionError(f"the {key} CNN-LSTM experiment is incomplete or not finite")
+        log(f"[experiments] {key}: f1 {np.mean([row['f1_score'] for row in rows]):.3f}, AUC "
+            f"{np.mean([row['auc'] for row in rows]):.3f}"
+            + (f", best params {exp_mod.best_params(rows)}" if key.startswith("tuned") else ""))
+    probe_seq = next(iter(sets["reading"].values()))
+    for kind in kinds:
+        path = os.path.join(tmp, "models", f"final_tuned_cnn_lstm_{kind}.pkl")
+        pred = Predictor.from_checkpoint(path, device=dev).predict_sequence(probe_seq)
+        if not np.isfinite(pred.logits).all():
+            raise AssertionError(f"the final {kind} model does not load or predict")
+        log(f"[experiments] final model {kind}: loaded by Predictor.from_checkpoint, "
+            f"P(Patient) of a reading sequence {pred.probability:.4f}")
+    if len(results) != 6:
+        raise AssertionError("the CNN-LSTM battery did not run its 6 experiments")
+    log(f"[experiments] phase wall {time.perf_counter() - phase_t0:.3f} s")
+    return {name: extract_launches[name] + dl_launches[name] for name in counters}
+
+
 def ptxas_report(text: str) -> list:
     """One line per kernel of ptxas's verbose output: its name with the
     integer template arguments, its registers and its spill bytes."""
@@ -2211,6 +2538,7 @@ def run(dev: torch.device, smi: str) -> None:
     cv, cv_lanes = cv_phase(dev, streaming_step_ms)
     with tempfile.TemporaryDirectory() as tmp:
         w2v = w2v_phase(dev, tmp)
+        experiments = experiments_phase(dev, tmp)
     parity_phase(dev)
     opensmile = opensmile_phase(dev)
     mshds = mshds_phase(dev, records)
@@ -2228,7 +2556,7 @@ def run(dev: torch.device, smi: str) -> None:
         rec = records[name]
         by_path = {"serving": serving[name], "training": training[name], "cv": cv[name],
                    "cv-lanes": cv_lanes[name], "opensmile": opensmile[name],
-                   "mshds": mshds[name], "w2v": w2v[name]}
+                   "mshds": mshds[name], "w2v": w2v[name], "experiments": experiments[name]}
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(by_path.values()),

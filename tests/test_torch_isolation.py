@@ -2,8 +2,8 @@
 
 Every module of ``robust_speech_analysis_framework_tpu_torch`` is imported in
 a fresh interpreter, which must end with neither ``jax``, ``flax``,
-``optax``, the JAX package nor ``pandas`` (absent on the card's machine) in
-``sys.modules``. Entry points built without
+``optax``, the JAX package, ``pandas`` nor ``matplotlib`` (the last two
+absent on the card's machine) in ``sys.modules``. Entry points built without
 ``device=`` use the card, and raise where there is none.
 """
 
@@ -15,8 +15,10 @@ import numpy as np
 import pytest
 import torch
 
+from robust_speech_analysis_framework_tpu_torch import experiments
 from robust_speech_analysis_framework_tpu_torch.device import resolve_device
-from robust_speech_analysis_framework_tpu_torch.eval import dl_cv
+from robust_speech_analysis_framework_tpu_torch.entry import entry as flagship_entry
+from robust_speech_analysis_framework_tpu_torch.eval import dl_cv, svm_cv
 from robust_speech_analysis_framework_tpu_torch.features.mshds import (
     extract_mshds_arrays,
     extract_mshds_single,
@@ -24,6 +26,7 @@ from robust_speech_analysis_framework_tpu_torch.features.mshds import (
 from robust_speech_analysis_framework_tpu_torch.features.opensmile import OpenSmileExtractor
 from robust_speech_analysis_framework_tpu_torch.features.wav2vec2 import Wav2Vec2Extractor
 from robust_speech_analysis_framework_tpu_torch.models.cnn_lstm import build_cnn_lstm
+from robust_speech_analysis_framework_tpu_torch.models.svm_device import smo_linear_batch
 from robust_speech_analysis_framework_tpu_torch.models.wav2vec2 import Wav2Vec2Config
 from robust_speech_analysis_framework_tpu_torch.ops.cepstrum import cpps_segments_batch
 from robust_speech_analysis_framework_tpu_torch.ops.formants import formant_track_burg_batch
@@ -52,7 +55,8 @@ import robust_speech_analysis_framework_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
-banned = ("jax", "jaxlib", "flax", "optax", "robust_speech_analysis_framework_tpu", "pandas")
+banned = ("jax", "jaxlib", "flax", "optax", "robust_speech_analysis_framework_tpu", "pandas",
+          "matplotlib")
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in banned)
 print(len(names), leaked)
 sys.exit(1 if leaked else 0)
@@ -77,7 +81,7 @@ def test_port_imports_no_jax():
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 51  # every module of the port so far was imported
+    assert n_modules >= 60  # every module of the port so far was imported
 
 
 def test_chip_smoke_fails_without_a_card():
@@ -91,6 +95,16 @@ def test_chip_smoke_fails_without_a_card():
     assert '"ok": true' not in proc.stdout
 
 
+def _tiny_svm_lanes():
+    return np.ones((1, 4, 2), np.float32), np.array([[1, 1, -1, -1]], np.float32), \
+        np.ones((1, 4), bool)
+
+
+def _tiny_svm_inputs():
+    x = np.arange(40, dtype=np.float64).reshape(20, 2)
+    return x, np.arange(20) % 2
+
+
 def _tiny_cv_inputs():
     seqs = [np.zeros((4, 8), np.float32)] * 20
     return seqs, np.arange(20) % 2
@@ -100,7 +114,9 @@ def _tiny_cv_inputs():
     "entry", ["extractor", "extractor_bf16_int8", "cnn_lstm", "predictor", "trainer", "device", "opensmile",
               "device_corpus", "resident_corpus", "standard_cv", "nested_cv", "corpus_buffer",
               "pitch_batch", "intensity_batch", "harmonicity_batch", "pulses_batch",
-              "moments_batch", "formants_batch", "cpps_batch", "mshds_arrays", "mshds_single"])
+              "moments_batch", "formants_batch", "cpps_batch", "mshds_arrays", "mshds_single",
+              "smo_batch", "standard_svm", "nested_svm", "host_svm", "extract_tables",
+              "svm_experiments", "cnn_lstm_experiments", "flagship_entry"])
 def test_entry_points_default_to_cuda(entry):
     hp = {"learning_rate": 1e-3, "cnn_out_channels": 8, "lstm_hidden_dim": 8}
     wave = [np.sin(np.arange(4000) / 10.0)]  # 0.25 s at 16 kHz
@@ -151,6 +167,24 @@ def test_entry_points_default_to_cuda(entry):
             [(wave[0], [(0.0, 0.25)])], 10000.0) else None,
         "mshds_arrays": lambda: torch.device("cuda") if extract_mshds_arrays(wave).size else None,
         "mshds_single": lambda: torch.device("cuda") if extract_mshds_single(wave[0]) else None,
+        # the SVM solver and engines (the host solver too: nothing is chosen
+        # by the hardware present), the experiment cores and the entry
+        "smo_batch": lambda: torch.device("cuda") if smo_linear_batch(
+            *_tiny_svm_lanes()) is not None else None,
+        "standard_svm": lambda: torch.device("cuda") if svm_cv.standard_svm_cv(
+            *_tiny_svm_inputs(), n_splits=2) else None,
+        "nested_svm": lambda: torch.device("cuda") if svm_cv.nested_svm_cv(
+            *_tiny_svm_inputs(), n_splits_outer=2, n_splits_inner=2) else None,
+        "host_svm": lambda: torch.device("cuda") if svm_cv.standard_svm_cv(
+            *_tiny_svm_inputs(), n_splits=2, solver="host") else None,
+        "extract_tables": lambda: torch.device("cuda") if experiments.extract_tables(
+            [], [], []) else None,
+        "svm_experiments": lambda: torch.device("cuda") if experiments.svm_experiments(
+            {"d": experiments.SvmDataset(_tiny_svm_inputs()[0], ["a", "b"], _tiny_svm_inputs()[1],
+                                         ["p"] * 20)}, verbose=False) else None,
+        "cnn_lstm_experiments": lambda: torch.device("cuda") if experiments.cnn_lstm_experiments(
+            {}, [], "unwritten") is not None else None,
+        "flagship_entry": lambda: flagship_entry()[1][1].device,
     }[entry]
     if torch.cuda.is_available():
         assert build().type == "cuda"
