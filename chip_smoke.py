@@ -65,15 +65,26 @@ without them. Phases, each of which raises on failure:
    schemes; C=32; C=1), the openSMILE shape (B=4, T=6485, C=7: a 60 s
    file's bucket) and the Praat shape of the next slice (B=8, T=5997,
    C=15), with times (and microseconds a step) beside the plain version's
-   and the card's bound;
+   and the card's bound; then the period march kernel (march_periods) at
+   the openSMILE corpus's largest sub-batch (4 files of 44–52 s, their F0
+   from the pitch chain on the card) against its plain version on the card
+   (≥ 99.9 % of boundaries equal, amplitudes and correlations within 1e-6
+   where they agree) and the numpy float64 oracle (≥ 99 %), with its time,
+   the plain version's and its bound;
 9. opensmile (the third main path): a seeded corpus of 16 speech-like
    16 kHz files of 20–60 s (three length buckets) through
    OpenSmileExtractor.extract_arrays on the card, counters reset just
-   before and read just after (one K6 and one K7 launch per sub-batch);
-   first-pass and steady wall time (median of 3), audio-s/s, the host
-   period march's time and share, peak memory, a profile of one sub-batch;
-   16 × 912 finite values; two short files card vs CPU within the
-   tolerance families of the JAX package's batched-vs-serial test;
+   before and read just after (one K6, one K7 and one period march launch
+   per sub-batch); first-pass and steady wall time (median of 3),
+   audio-s/s, peak memory; one sub-batch chain dispatched under torch's
+   sync debug mode at "error" (no read of the card between its upload and
+   its fetch), its uploaded bytes, and its profile: wall, device busy and
+   idle share, the march kernel's time, the copies (two down: the
+   functional fetches); 16 × 912 finite values; two short files card vs
+   CPU within the tolerance families of the JAX package's batched-vs-serial
+   test. Before it, checkpoint: a flagship train state (B=2, T=512, dropout
+   on) saved after two steps and restored into a fresh state takes the
+   uninterrupted run's third step within 3e-7, rate and Adam steps equal;
 10. cv (the training half of the main path, whole): the corpus of phase 6
     uploaded once as a ResidentCorpus, then over that one tensor the
     standard engine (``standard_kfold_cv``: 2 folds, 2 epochs, the flagship
@@ -125,7 +136,8 @@ without them. Phases, each of which raises on failure:
     cores of ``experiments.py``), over phase 12's tree: MSHDS-25,
     openSMILE-912 and a full-width random-init Wav2Vec2-base of both tasks
     (counters reset just before and read just after: one K6 and one K7
-    launch per pitch pass or sub-batch, nothing else), the 9 SVM datasets
+    launch per pitch pass or sub-batch and one period march per openSMILE
+    sub-batch, nothing else), the 9 SVM datasets
     and the 18 SVM experiments on the batched SMO on the card (no kernel
     launched; each SMO call's lanes, iterations, host syncs and ms a step)
     against the float64 host solver (metrics 1e-9, AUC 1e-6, probabilities
@@ -147,6 +159,7 @@ from __future__ import annotations
 import collections
 import copy
 import dataclasses
+import functools
 import json
 import os
 import re
@@ -180,7 +193,10 @@ from robust_speech_analysis_framework_tpu_torch.ops import formants as mshds_for
 from robust_speech_analysis_framework_tpu_torch.ops import pitch as mshds_pitch
 from robust_speech_analysis_framework_tpu_torch.ops import pulses as mshds_pulses
 from robust_speech_analysis_framework_tpu_torch.ops import spectral as mshds_spectral
+from robust_speech_analysis_framework_tpu_torch.ops import framing as framing_ops
+from robust_speech_analysis_framework_tpu_torch.ops import jitter as jitter_ops
 from robust_speech_analysis_framework_tpu_torch.ops.cuda import _build
+from robust_speech_analysis_framework_tpu_torch.ops.cuda import jitter as march_ops
 from robust_speech_analysis_framework_tpu_torch.ops.cuda import lstm as lstm_ops
 from robust_speech_analysis_framework_tpu_torch.ops.cuda import viterbi as viterbi_ops
 from robust_speech_analysis_framework_tpu_torch.serving import Predictor
@@ -235,6 +251,9 @@ SCAN_TILES = (1, 2)  # the forward scan's batch tiles, timed at the flagship sha
 SOURCE = "robust_speech_analysis_framework_tpu_torch/csrc/lstm_scan.cu"
 TRAIN_SOURCE = "robust_speech_analysis_framework_tpu_torch/csrc/lstm_train.cu"
 VITERBI_SOURCE = "robust_speech_analysis_framework_tpu_torch/csrc/viterbi.cu"
+MARCH_SOURCE = "robust_speech_analysis_framework_tpu_torch/csrc/period_march.cu"
+# the JAX package's device march: a lax.while_loop that XLA lowers, not Pallas
+JAX_MARCH = "robust_speech_analysis_framework_tpu/ops/jitter.py:111"
 PALLAS = "robust_speech_analysis_framework_tpu/ops/pallas/lstm.py"
 PALLAS_VITERBI = "robust_speech_analysis_framework_tpu/ops/pallas/viterbi.py"
 
@@ -254,6 +273,19 @@ VITERBI_SHAPES = {  # B, T, C, weights
 }
 SR = 16000
 OS_FILES, OS_MIN_S, OS_MAX_S = 16, 20.0, 60.0
+# the period march kernel against its plain version (both float64 sums, in
+# other orders: a near-tie may break apart) and against the numpy oracle
+# (window energies as prefix-sum differences there)
+MARCH_SAME, MARCH_ORACLE_SAME, MARCH_TOL = 0.999, 0.99, 1e-6
+# H100 SXM float64 peak outside the tensor cores, 34 TFLOP/s (NVIDIA data
+# sheet, 700 W). The data sheet's 67 TFLOP/s float64 tensor-core rate is for
+# matrix products (DMMA tiles m8n8k4); the march's lag scores are one
+# matrix-vector product a substep (one template against its lag windows,
+# and the next substep's template depends on this one's winner), which
+# fills one of a tile's eight columns: at most 67 / 8 TFLOP/s there, so the
+# vector rate is the higher one this work can reach
+PEAK_FP64_FLOPS = 34e12
+CKPT_TOL = 3e-7  # a train step's run-to-run spread on the card (cuDNN's backward)
 # card vs CPU on extraction: the JAX package's batched-vs-serial families
 OS_MEDIAN_TOL, OS_MEAN_TOL, OS_VQ_MEAN_TOL = 1e-5, 2e-4, 5e-2
 
@@ -416,10 +448,27 @@ def flagship_phase(dev: torch.device) -> None:
     profile_forward(model, x, lengths)
 
 
+def _device_us(e) -> float:
+    return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+
+def _device_rows(prof) -> list:
+    """The profile's device kernel rows, longest first (an operator's row
+    repeats its kernels' time, so only the device's own)."""
+    from torch.autograd import DeviceType
+
+    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return sorted(rows, key=_device_us, reverse=True)
+
+
+def _log_top_kernels(rows: list, top: int) -> None:
+    for e in rows[:top]:
+        log(f"[profile]   {_device_us(e) / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:90]}")
+
+
 def profile_device(label: str, fn, top: int) -> None:
     """Device time by kernel over one call of ``fn`` (torch.profiler), with
     the device's idle share of the window."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -428,20 +477,14 @@ def profile_device(label: str, fn, top: int) -> None:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
 
-    def device_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-
-    # only the device's own kernel rows: an operator's row repeats its kernels' time
-    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    rows.sort(key=device_us, reverse=True)
-    total_ms = sum(device_us(e) for e in rows) / 1e3
+    rows = _device_rows(prof)
+    total_ms = sum(_device_us(e) for e in rows) / 1e3
     if total_ms == 0:
         log("[profile] the profiler recorded no device time")
         return
     log(f"[profile] {label}: {wall_ms:.3f} ms wall, {total_ms:.3f} ms device "
         f"(device idle {max(0.0, 1 - total_ms / wall_ms):.1%} of the window)")
-    for e in rows[:top]:
-        log(f"[profile]   {device_us(e) / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:90]}")
+    _log_top_kernels(rows, top)
 
 
 def profile_forward(model, x, lengths) -> None:
@@ -816,6 +859,7 @@ def _counters():
         "lstm_scan_bwd_grouped", "lstm_gate_acts_grouped", "lstm_dwh_grouped")}
     counters.update({name: getattr(viterbi_ops, name)
                      for name in ("viterbi_forward_costs", "viterbi_path")})
+    counters["march_periods"] = march_ops.march_periods
     return counters
 
 
@@ -1443,71 +1487,208 @@ def _speech(seconds: float, f0: float, seed: int, sr: int = SR) -> np.ndarray:
     return (np.clip(np.round(x * 32768.0), -32768, 32767) / 32768.0).astype(np.float32)
 
 
+@functools.lru_cache(maxsize=1)
+def _opensmile_corpus() -> dict:
+    """The openSMILE phase's seeded corpus: OS_FILES speech-like 16-bit PCM
+    files of OS_MIN_S–OS_MAX_S seconds, made once."""
+    lengths = np.linspace(OS_MIN_S, OS_MAX_S, OS_FILES)
+    return {f"s{i:02d}.wav": _speech(s, 110 + 9 * i, i) for i, s in enumerate(lengths)}
+
+
+def march_bound_ms(stack: np.ndarray, f0: np.ndarray, nf, counts: np.ndarray,
+                   starts: np.ndarray, p_max: int, hop: int, srr: float = 0.25,
+                   f0_min: float = 40.0) -> tuple:
+    """Least time for the march on these inputs: the stack, F0 and counts
+    read once and the four (B, P) buffers written once; per period found
+    (this run's data, from its starts) the float64 work its substep needs:
+    one FMA per template sample and lag for the correlations, and the
+    energies as sums of squares: the template's e_a (w0 FMAs), the first
+    lag window's e(lo) (w0) and each further lag's e(L) slid from it (two
+    FMAs: the sample in, the sample out), the window's e_tot (GW)."""
+    b, n = stack.shape
+    _, _, gw = march_ops.march_geometry(SR, srr, f0_min)
+    flops = 0.0
+    for i in range(b):
+        st = starts[i, : counts[i]]
+        fv = np.maximum(f0[i, np.minimum(st // hop, nf[i] - 1)], np.float32(f0_min))
+        t0 = np.float32(SR) / fv
+        lo = np.maximum((t0 * np.float32(1 - srr)).astype(np.int64), 8)
+        hi = (t0 * np.float32(1 + srr)).astype(np.int64) + 1
+        w0 = np.round(t0).astype(np.int64)
+        lags = np.maximum(hi - lo + 1, 1)
+        flops += float((2 * w0 * lags + 2 * w0 + 2 * w0 + 4 * (lags - 1) + 2 * gw).sum())
+    bytes_moved = 4 * (stack.size + f0.size + 2 * b + 4 * b * p_max + b)
+    t_bytes = bytes_moved / PEAK_HBM_BYTES * 1e3
+    t_ops = flops / PEAK_FP64_FLOPS * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def march_kernel_phase(dev: torch.device) -> dict:
+    """The period march kernel against its plain version on the card and
+    against the numpy float64 oracle, at the openSMILE corpus's largest
+    sub-batch (its pitch chain's F0 on the card), with times and bound."""
+    extractor = opensmile_mod.OpenSmileExtractor(device=dev)
+    cfg = extractor.config.frontend
+    corpus = _opensmile_corpus()
+    bucket = max(extractor._bucket_of(len(x)) for x in corpus.values())
+    waves = [x for x in corpus.values()
+             if extractor._bucket_of(len(x)) == bucket][: extractor.pipeline_rows]
+    stack = extractor._stack(bucket, waves)
+    x = framing_ops.upload_pcm_f32(stack, dev)
+    mag, _, energy, _, _, _, vpow = extractor.frame_stage(x)
+    f0, _ = opensmile_mod.shs_pitch_batch(mag, cfg.sample_rate, energy, extractor.config.shs,
+                                          extractor.config.energy_gate, win_len=cfg.frame_len,
+                                          voicing_power=vpow)
+    nts = [opensmile_mod.num_frames(len(w), cfg.frame_len, cfg.hop) for w in waves]
+    ns = torch.tensor([len(w) for w in waves], dtype=torch.int32, device=dev)
+    nf = torch.tensor(nts, dtype=torch.int32, device=dev)
+    p_max = max(bucket // 16, 4)
+    args = (x, f0, ns, nf, float(SR), cfg.hop, extractor.config.jitter_search_range, 40.0, p_max)
+    card = [t.cpu().numpy() for t in march_ops.march_periods(*args)]
+    plain_out, plain_ms = timed_once(lambda: march_ops.march_periods_reference(*args))
+    plain = [t.cpu().numpy() for t in plain_out]
+    f0_host = f0.cpu().numpy()
+    worst_same, worst_oracle, err, faults = 1.0, 1.0, 0.0, []
+    for i, w in enumerate(waves):
+        k = int(min(card[4][i], plain[4][i]))
+        # a lane ended early (a wrong break or cap, a lost jump near the end)
+        # shows in its count; rows past the count stay zero
+        if abs(int(card[4][i]) - int(plain[4][i])) > max(1, k // 1000):
+            faults.append(f"file {i}: {card[4][i]} periods, plain version {plain[4][i]}")
+        if any(a[i, card[4][i]:].any() for a in card[:4]):
+            faults.append(f"file {i}: rows past its count {card[4][i]} are not zero")
+        same = card[0][i, :k] == plain[0][i, :k]
+        err = max(err, float(np.abs(card[2][i, :k] - plain[2][i, :k])[same].max()),
+                  float(np.abs(card[3][i, :k] - plain[3][i, :k])[same].max()))
+        oracle = jitter_ops.mark_periods(w.astype(np.float64), SR, f0_host[i, : nts[i]],
+                                         hop_s=cfg.hop_seconds)
+        m = min(len(oracle.starts), int(card[4][i]))
+        if abs(int(card[4][i]) - len(oracle.starts)) > max(1, m // 1000):
+            faults.append(f"file {i}: {card[4][i]} periods, oracle {len(oracle.starts)}")
+        by_oracle = float(np.mean(card[0][i, :m] == oracle.starts[:m]))
+        worst_same, worst_oracle = min(worst_same, float(same.mean())), min(worst_oracle, by_oracle)
+        log(f"[march-kernel] file {i} ({len(w) / SR:.1f} s): kernel {card[4][i]} periods, plain "
+            f"{plain[4][i]}, oracle {len(oracle.starts)}; equal starts {same.mean():.6%} of the "
+            f"plain version's, {by_oracle:.6%} of the oracle's")
+    ms = cuda_ms(lambda: march_ops.march_periods(*args), 3)
+    bound, bound_by = march_bound_ms(stack, f0_host, nts, card[4], card[0], p_max, cfg.hop)
+    longest = int(card[4].max())
+    log(f"[march-kernel] B={len(waves)} N={bucket} P={p_max}: kernel {ms:.4f} ms "
+        f"({ms / longest * 1e3:.3f} us a period of the longest lane, {longest} periods), plain "
+        f"{plain_ms:.4f} ms, bound {bound:.6f} ms ({bound_by}); no single PyTorch call marches "
+        f"periods; max|d| of amplitudes and correlations where starts agree {err:.3e} (tol "
+        f"{MARCH_TOL}); equal starts: worst {worst_same:.6%} of the plain version's (required "
+        f"{MARCH_SAME:.1%}), {worst_oracle:.6%} of the oracle's (required {MARCH_ORACLE_SAME:.0%})")
+    if faults:
+        log(f"[march-kernel] period counts or tails wrong: {faults}")
+    if not (worst_same >= MARCH_SAME and worst_oracle >= MARCH_ORACLE_SAME and err <= MARCH_TOL
+            and (card[4] > 0).all() and not faults):
+        raise AssertionError("the period march kernel disagrees with its plain version or "
+                             "the oracle")
+    return {"march_periods": {
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+        "bound_by": bound_by, "library_ms": None, "shape": f"B={len(waves)} N={bucket} P={p_max}",
+        "boundaries_equal": worst_same, "periods_longest_lane": longest}}
+
+
+def profile_opensmile_sub_batch(extractor, bucket: int, waves, top: int) -> dict:
+    """One sub-batch chain profiled from its dispatch to its fetch: wall,
+    the device's busy time and idle share of that window, the march
+    kernel's device time, the host↔device copies (exactly the two
+    functional fetches down: no read between upload and fetch), and its
+    ``top`` kernels by device time, logged."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function("opensmile:sub-batch"):
+            extractor._dispatch(bucket, waves).result()
+    events = prof.events()
+    (window,) = [e for e in events if e.name == "opensmile:sub-batch"
+                 and e.device_type == DeviceType.CPU]
+    lo, hi = window.time_range.start, window.time_range.end
+    device = [e for e in events if e.device_type == DeviceType.CUDA
+              and not e.name.startswith("opensmile:")]
+    busy_us = _union_us([(e.time_range.start, e.time_range.end) for e in device], lo, hi)
+    march_us = sum(e.time_range.elapsed_us() for e in device if "period_march" in e.name)
+    down = [e for e in device if "DtoH" in e.name or "Device -> Pinned" in e.name
+            or "Device -> Pageable" in e.name]
+    up = [e for e in device if "HtoD" in e.name]
+    _log_top_kernels([e for e in _device_rows(prof) if not e.key.startswith("opensmile:")], top)
+    return {"wall_ms": (hi - lo) / 1e3, "busy_ms": busy_us / 1e3,
+            "idle": 1 - busy_us / max(hi - lo, 1e-9), "march_ms": march_us / 1e3,
+            "down": len(down), "up": len(up), "device_events": len(device)}
+
+
 def opensmile_phase(dev: torch.device) -> dict:
     """The third main path: openSMILE-912 extraction of a 16-file corpus."""
     t0 = time.perf_counter()
-    lengths = np.linspace(OS_MIN_S, OS_MAX_S, OS_FILES)
-    corpus = {f"s{i:02d}.wav": _speech(s, 110 + 9 * i, i) for i, s in enumerate(lengths)}
+    corpus = _opensmile_corpus()
     audio_s = sum(len(x) for x in corpus.values()) / SR
     extractor = opensmile_mod.OpenSmileExtractor(device=dev)
     buckets = sorted({extractor._bucket_of(len(x)) for x in corpus.values()})
     log(f"[opensmile] corpus: {OS_FILES} files, {OS_MIN_S}–{OS_MAX_S} s, {audio_s:.1f} audio-s "
         f"in buckets {buckets} samples, made in {time.perf_counter() - t0:.2f} s")
 
-    march_s = []  # the host period march, timed per file
-    real_march = opensmile_mod.jitter_shimmer_llds
-
-    def timed_march(*args, **kwargs):
-        start = time.perf_counter()
-        out = real_march(*args, **kwargs)
-        march_s.append(time.perf_counter() - start)
-        return out
-
     def extract():
-        march_s.clear()
         start = time.perf_counter()
         names, feats = extractor.extract_arrays(corpus, verbose=False)
         torch.cuda.synchronize()
-        return names, feats, time.perf_counter() - start, sum(march_s)
+        return names, feats, time.perf_counter() - start
 
-    opensmile_mod.jitter_shimmer_llds = timed_march
-    try:
-        counters = _counters()
-        torch.cuda.reset_peak_memory_stats(dev)
-        for fn in counters.values():
-            fn.launches = 0
-        names, feats, first_s, first_march = extract()
-        launches = {name: fn.launches for name, fn in counters.items()}
-        peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
-        steady = [extract()[2:] for _ in range(3)]
-    finally:
-        opensmile_mod.jitter_shimmer_llds = real_march
-
-    walls = [s[0] for s in steady]
+    counters = _counters()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for fn in counters.values():
+        fn.launches = 0
+    names, feats, first_s = extract()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    walls = [extract()[2] for _ in range(3)]
     median = statistics.median(walls)
-    march = steady[walls.index(median)][1]
     per_bucket = collections.Counter(extractor._bucket_of(len(x)) for x in corpus.values())
     n_sub = sum(-(-n // extractor.pipeline_rows) for n in per_bucket.values())
-    log(f"[opensmile] first pass {first_s:.3f} s ({audio_s / first_s:.1f} audio-s/s; host march "
-        f"{first_march:.3f} s, {first_march / first_s:.1%}); steady median {median:.3f} s of "
-        f"{[round(w, 3) for w in walls]} s, {audio_s / median:.1f} audio-s/s; host march "
-        f"{march:.3f} s = {march / median:.1%} of the extraction; peak memory {peak_gib:.3f} GiB")
-    log(f"[opensmile] main-path launches: {launches}; expected one K6 and one K7 per "
-        f"sub-batch, {n_sub} sub-batches")
-    if not (launches["viterbi_forward_costs"] == launches["viterbi_path"] == n_sub
-            and sum(launches.values()) == 2 * n_sub):
-        raise AssertionError("the openSMILE path did not launch K6/K7, and only them, "
-                             "once per sub-batch")
+    log(f"[opensmile] first pass {first_s:.3f} s ({audio_s / first_s:.1f} audio-s/s); steady "
+        f"median {median:.3f} s of {[round(w, 3) for w in walls]} s, {audio_s / median:.1f} "
+        f"audio-s/s; {opensmile_mod._MAX_INFLIGHT} sub-batch chains in flight; peak memory "
+        f"{peak_gib:.3f} GiB")
+    log(f"[opensmile] main-path launches: {launches}; expected one K6, one K7 and one period "
+        f"march per sub-batch, {n_sub} sub-batches")
+    if not (launches["viterbi_forward_costs"] == launches["viterbi_path"]
+            == launches["march_periods"] == n_sub and sum(launches.values()) == 3 * n_sub):
+        raise AssertionError("the openSMILE path did not launch K6, K7 and the march, and only "
+                             "them, once per sub-batch")
     if feats.shape != (OS_FILES, 912) or not np.isfinite(feats).all() or sorted(names) != sorted(corpus):
         raise AssertionError(f"bad openSMILE features {feats.shape}")
     col = opensmile_mod.feature_columns().index("F0final_sma_amean")
     log(f"[opensmile] {feats.shape} finite; F0final_sma_amean over files "
         f"{feats[:, col].min():.2f}–{feats[:, col].max():.2f} Hz")
 
+    # one sub-batch of the largest bucket: no synchronising call (no read of
+    # the card) from its upload to its fetch, then its profile
     big = [x for x in corpus.values() if extractor._bucket_of(len(x)) == buckets[-1]]
-    profile_device(f"one openSMILE sub-batch ({min(len(big), extractor.pipeline_rows)} files, "
-                   f"bucket {buckets[-1]})",
-                   lambda: extractor._sub_batch(buckets[-1], big[: extractor.pipeline_rows]), 12)
+    part = big[: extractor.pipeline_rows]
+    stack = extractor._stack(buckets[-1], part)
+    pcm = framing_ops._pcm_int16(stack) is not None
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        chain = extractor._dispatch(buckets[-1], part)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    chain.result()
+    log(f"[profile] one openSMILE sub-batch ({len(part)} files, bucket {buckets[-1]}), its "
+        f"kernels by device time:")
+    prof = profile_opensmile_sub_batch(extractor, buckets[-1], part, 12)
+    log(f"[opensmile] one sub-batch ({len(part)} files, bucket {buckets[-1]}): dispatched with "
+        f"torch's sync debug mode at 'error' (no synchronising call); uploaded "
+        f"{stack.size * (2 if pcm else 4)} B of waveforms ({'int16' if pcm else 'float32'}; "
+        f"{stack.size * 4} B as float32); profiled: wall {prof['wall_ms']:.3f} ms, device busy "
+        f"{prof['busy_ms']:.3f} ms (idle {prof['idle']:.1%}), period march kernel "
+        f"{prof['march_ms']:.3f} ms, copies {prof['up']} up and {prof['down']} down "
+        f"(the two functional fetches)")
+    if prof["device_events"] and prof["down"] != 2:
+        raise AssertionError(f"{prof['down']} device→host copies in one sub-batch chain, "
+                             "expected only its two functional fetches")
 
     # the two files of tests/test_torch_cuda.py::test_opensmile_on_card_matches_cpu:
     # steady harmonics without vibrato. Positional functionals of a contour
@@ -1536,6 +1717,50 @@ def opensmile_phase(dev: torch.device) -> dict:
             and stats[2] < OS_VQ_MEAN_TOL):
         raise AssertionError("openSMILE features on the card disagree with the CPU")
     return launches
+
+
+def checkpoint_phase(dev: torch.device, tmp: str) -> None:
+    """A whole train state of the flagship model saved after two steps on
+    the card and restored into a fresh state: the next step matches the
+    uninterrupted run's within CKPT_TOL (parameters, BatchNorm statistics,
+    Adam moments), with the same rate and step counts."""
+    from robust_speech_analysis_framework_tpu_torch.train import checkpoints
+
+    rng = np.random.default_rng(11)
+    batches = []
+    for _ in range(3):
+        x = rng.standard_normal((2, 512, DIM), dtype=np.float32)
+        x[1, 377:] = 0.0
+        batches.append((x, np.array([512, 377], np.int32), np.array([0, 1])))
+    trainer = loops.Trainer(CNNLSTM(DIM, 2, 128, 128), device=dev)
+
+    def step(state, i):
+        x, lengths, y = batches[i]
+        trainer.train_step(state, x, lengths, y,
+                           torch.Generator(device=dev).manual_seed(i), dropout_rate=0.5)
+
+    whole = trainer.init_state(7, 1e-3)
+    step(whole, 0)
+    step(whole, 1)
+    whole.lr = 1e-4  # as after a plateau decay
+    checkpoints.save_train_state(tmp, whole, step=2)
+    resumed = checkpoints.restore_train_state(tmp, trainer.init_state(8, 0.5), step=2)
+    step(whole, 2)
+    step(resumed, 2)
+    torch.cuda.synchronize()
+    sa, sb = whole.model.state_dict(), resumed.model.state_dict()
+    state_err = max(float((sa[k].double() - sb[k].double()).abs().max()) for k in sa)
+    oa, ob = whole.optimizer.state_dict()["state"], resumed.optimizer.state_dict()["state"]
+    adam_err = max(float((oa[i][key] - ob[i][key]).abs().max())
+                   for i in oa for key in ("exp_avg", "exp_avg_sq"))
+    steps = {float(v["step"]) for v in (*oa.values(), *ob.values())}
+    log(f"[checkpoint] flagship train state after 2 steps (B=2 T=512), saved and restored into "
+        f"a fresh state, then step 3 on both: model max|d|={state_err:.3e}, Adam moments "
+        f"max|d|={adam_err:.3e} (tol {CKPT_TOL}); rate {resumed.lr} vs {whole.lr}; Adam steps "
+        f"{sorted(steps)}")
+    if not (state_err <= CKPT_TOL and adam_err <= CKPT_TOL and resumed.lr == whole.lr
+            and steps == {3.0} and oa.keys() == ob.keys()):
+        raise AssertionError("a resumed train state does not take the uninterrupted step")
 
 
 # ---------------------------------------------------------------------------
@@ -2273,14 +2498,17 @@ def experiments_phase(dev: torch.device, tmp: str) -> dict:
     n_paths = len(passes["mshds"]) + len(passes["opensmile"])
     log(f"[experiments] extraction launches: {extract_launches}; pitch passes: MSHDS "
         f"{len(passes['mshds'])} in {len(calls['mshds'])} calls (2 + 3 a range group each), "
-        f"openSMILE {len(passes['opensmile'])} (expected {n_sub} sub-batches); peak memory "
+        f"openSMILE {len(passes['opensmile'])} (expected {n_sub} sub-batches, one period "
+        f"march each); peak memory "
         f"{peak_extract:.3f} GiB")
     if not (extract_launches["viterbi_path"] == extract_launches["viterbi_forward_costs"]
-            == n_paths and sum(extract_launches.values()) == 2 * n_paths
+            == n_paths and extract_launches["march_periods"] == n_sub
+            and sum(extract_launches.values()) == 2 * n_paths + n_sub
             and len(passes["opensmile"]) == n_sub and len(calls["mshds"]) == 2
             and len(passes["mshds"]) in (10, 13, 16)):
         raise AssertionError("the extractions did not launch K6/K7, and only them, once per "
-                             "pitch pass or sub-batch")
+                             "pitch pass or sub-batch, and the period march once per openSMILE "
+                             "sub-batch")
     rows_of = {"reading": len(reading), "interview": len({r["unique_participant_id"]
                                                          for r in interview})}
     for (fs, task), name in exp_mod.TABLE_ARTIFACTS.items():
@@ -2531,6 +2759,7 @@ def run(dev: torch.device, smi: str) -> None:
         records[name]["max_abs_err"] = max(records[name]["max_abs_err"],
                                            *(t["max_abs_err"] for t in by_shape.values()))
     records.update(viterbi_kernel_phase(dev))
+    records.update(march_kernel_phase(dev))
     flagship_phase(dev)
     with tempfile.TemporaryDirectory() as tmp:
         serving = serving_phase(dev, tmp)
@@ -2540,6 +2769,8 @@ def run(dev: torch.device, smi: str) -> None:
         w2v = w2v_phase(dev, tmp)
         experiments = experiments_phase(dev, tmp)
     parity_phase(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        checkpoint_phase(dev, tmp)
     opensmile = opensmile_phase(dev)
     mshds = mshds_phase(dev, records)
 
@@ -2552,6 +2783,7 @@ def run(dev: torch.device, smi: str) -> None:
         ("lstm_dwh_grouped", TRAIN_SOURCE, f"{PALLAS}:319"),
         ("viterbi_forward_costs", VITERBI_SOURCE, f"{PALLAS_VITERBI}:93"),
         ("viterbi_path", VITERBI_SOURCE, f"{PALLAS_VITERBI}:135"),
+        ("march_periods", MARCH_SOURCE, JAX_MARCH),
     ):
         rec = records[name]
         by_path = {"serving": serving[name], "training": training[name], "cv": cv[name],
@@ -2565,7 +2797,8 @@ def run(dev: torch.device, smi: str) -> None:
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec["library_ms"], "shape": rec["shape"],
             "on_main_path": name != "lstm_scan",
-            **{k: rec[k] for k in ("serving", "praat", "mshds", "sweep_ms", "split", "lanes")
+            **{k: rec[k] for k in ("serving", "praat", "mshds", "sweep_ms", "split", "lanes",
+                                   "boundaries_equal", "periods_longest_lane")
                if k in rec},
         })
     log(f"[card] {smi}")

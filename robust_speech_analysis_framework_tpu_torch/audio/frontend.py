@@ -19,6 +19,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..ops.framing import upload
+
 
 def num_frames(n_samples: int, frame_len: int, hop: int) -> int:
     """Number of complete frames in a signal of ``n_samples``."""
@@ -36,8 +38,9 @@ def frame_signal(x: torch.Tensor, frame_len: int, hop: int) -> torch.Tensor:
 
 def table(array: np.ndarray, like: torch.Tensor) -> torch.Tensor:
     """A host table on ``like``'s device, in ``like``'s dtype (never float64
-    on the card)."""
-    return torch.as_tensor(array).to(device=like.device, dtype=like.dtype)
+    on the card), uploaded without waiting for the kernels queued there
+    (:func:`..ops.framing.upload`)."""
+    return upload(torch.as_tensor(array).to(dtype=like.dtype), like.device)
 
 
 @lru_cache(maxsize=32)

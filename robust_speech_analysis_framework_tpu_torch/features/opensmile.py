@@ -13,13 +13,19 @@ functionals per contour.
 emits the reference's observed 911 (its loader drops the first feature,
 taking it for the instance-name column).
 
-On the card, per sub-batch of same-bucket files: one upload of the (B, N)
-waveform stack; the frame stage, the pitch chain (with the Viterbi kernel
-K7) and the masked summary stage run there; the (B, T) F0 comes down once
-for the period march on the host (``ops/jitter.py``, float64), whose (B, T,
-4) voice-quality LLDs go back up; the (B, 12, 38) × 2 functionals come down
-once. No module here imports pandas: the DataFrame front doors import it
-when called, over the numpy core :meth:`OpenSmileExtractor.extract_arrays`.
+On the card, per sub-batch of same-bucket files, one chain with no host
+read between its upload and its fetch: the (B, N) waveform stack goes up
+once (as int16 for 16-bit PCM, ``ops/framing.upload_pcm_f32``); the frame
+stage, the pitch chain (with the Viterbi kernel K7), the period march (its
+own kernel, fed the pitch chain's F0 on the card), the period→LLD prefix
+sums and the masked summary stage run there; the (B, 12, 38) × 2
+functionals come down once. :meth:`OpenSmileExtractor.extract_arrays`
+keeps up to ``_MAX_INFLIGHT`` (3) such chains queued, reading the oldest
+while the card runs the others. A card error propagates: there is no host
+march to fall back on and no retry. The single-file paths are a batch of
+one, with the same march. No module here imports pandas: the DataFrame
+front doors import it when called, over the numpy core
+:meth:`OpenSmileExtractor.extract_arrays`.
 """
 
 from __future__ import annotations
@@ -51,7 +57,8 @@ from ..ops.functionals import (
     delta_regression_masked,
     smooth_sma_masked,
 )
-from ..ops.jitter import jitter_shimmer_llds
+from ..ops.framing import Deferred, queue_fetch, upload, upload_pcm_f32
+from ..ops.jitter import mark_periods_batch, periods_to_llds_batch
 from ..ops.lld_spectral import (
     SPECTRAL_NAMES,
     intensity_loudness,
@@ -60,6 +67,9 @@ from ..ops.lld_spectral import (
     zero_crossing_rate,
 )
 from ..ops.shs_pitch import ShsParams, shs_pitch_batch
+
+# sub-batch chains queued before the oldest is read
+_MAX_INFLIGHT = 3
 
 LLD_NAMES: List[str] = (
     ["pcm_RMSenergy"]
@@ -166,51 +176,44 @@ class OpenSmileExtractor:
         de = delta_regression_masked(sma, lengths, self.config.deltawin)
         return apply_functionals_masked(sma, lengths), apply_functionals_masked(de, lengths)
 
-    def _voice_quality(self, waves: Sequence[np.ndarray], f0: np.ndarray,
-                       n_frames: Sequence[int]) -> np.ndarray:
-        """The host period march per file → (B, T, 4) float32, zero past
-        each file's frames."""
+    def _llds(self, x: torch.Tensor, ns: Sequence[int], n_frames: Sequence[int]) -> torch.Tensor:
+        """(B, N) zero-padded waveforms on the device → (B, T, 38) LLDs
+        there, with no host read: the period march takes the pitch chain's
+        F0 where it lies."""
         cfg = self.config.frontend
-        vq = np.zeros(f0.shape + (4,), np.float32)
-        for i, (x, nt) in enumerate(zip(waves, n_frames)):
-            v = jitter_shimmer_llds(
-                x.astype(np.float64), cfg.sample_rate, f0[i, :nt],
-                hop_s=cfg.hop_seconds, frame_s=cfg.frame_seconds,
-                search_range_rel=self.config.jitter_search_range,
-            )
-            vq[i, :nt] = v[:nt]
-        return vq
-
-    def _llds(self, stack: np.ndarray, waves: Sequence[np.ndarray],
-              n_frames: Sequence[int]) -> torch.Tensor:
-        """(B, N) float32 stack of zero-padded waveforms → (B, T, 38) LLDs on
-        the device: one upload, F0 down once for the march, vq up once."""
-        cfg = self.config.frontend
-        x = torch.from_numpy(stack).to(self.device)
         mag, mfcc, energy, zcr, inten, spect, vpow = self.frame_stage(x)
         f0, voicing = shs_pitch_batch(
             mag, cfg.sample_rate, energy, self.config.shs, self.config.energy_gate,
             win_len=cfg.frame_len, voicing_power=vpow,
         )
-        vq = self._voice_quality(waves, f0.cpu().numpy(), n_frames)
+        march = mark_periods_batch(
+            x, cfg.sample_rate, f0, ns, n_frames, hop_s=cfg.hop_seconds,
+            search_range_rel=self.config.jitter_search_range, defer=True,
+        )
+        vq = periods_to_llds_batch(march.arrays, f0, cfg.sample_rate,
+                                   hop_s=cfg.hop_seconds, frame_s=cfg.frame_seconds)
         return torch.cat(
             [energy[..., None], mfcc, zcr[..., None], f0[..., None], voicing[..., None],
-             inten, torch.from_numpy(vq).to(self.device), spect],
+             inten, vq, spect],
             dim=-1,
         )
 
-    def _sub_batch(self, bucket: int, waves: Sequence[np.ndarray]) -> Tuple[np.ndarray, np.ndarray]:
-        """One sub-batch of a bucket through every stage → (f_sma, f_de)
-        (B, 12, 38) numpy."""
-        cfg = self.config.frontend
+    def _stack(self, bucket: int, waves: Sequence[np.ndarray]) -> np.ndarray:
         stack = np.zeros((len(waves), bucket), np.float32)
         for i, x in enumerate(waves):
             stack[i, : len(x)] = x
+        return stack
+
+    def _dispatch(self, bucket: int, waves: Sequence[np.ndarray]) -> Deferred:
+        """Queue one sub-batch of a bucket through every stage: a Deferred
+        of its (f_sma, f_de), each (B, 12, 38), whose copies to the host are
+        queued behind it."""
+        cfg = self.config.frontend
         nts = [num_frames(len(x), cfg.frame_len, cfg.hop) for x in waves]
-        lld = self._llds(stack, waves, nts)
-        lengths = torch.as_tensor(nts, device=self.device)
-        f_sma, f_de = self.summary_stage(lld, lengths)
-        return f_sma.cpu().numpy(), f_de.cpu().numpy()
+        x = upload_pcm_f32(self._stack(bucket, waves), self.device)
+        lld = self._llds(x, [len(w) for w in waves], nts)
+        lengths = upload(np.asarray(nts, np.int64), self.device)
+        return queue_fetch(self.summary_stage(lld, lengths), tuple)
 
     # ---- public API ----------------------------------------------------------
 
@@ -238,9 +241,8 @@ class OpenSmileExtractor:
         n_true = num_frames(len(x), cfg.frame_len, cfg.hop)
         if n_true < 1:
             raise ValueError(f"{len(x)} samples is shorter than one analysis frame")
-        stack = np.zeros((1, self._bucket_of(len(x))), np.float32)
-        stack[0, : len(x)] = x
-        return self._llds(stack, [x], [n_true])[0, :n_true].cpu().numpy()
+        x_dev = upload_pcm_f32(self._stack(self._bucket_of(len(x)), [x]), self.device)
+        return self._llds(x_dev, [len(x)], [n_true])[0, :n_true].cpu().numpy()
 
     def extract_single(self, x: np.ndarray) -> np.ndarray:
         """One waveform → the 912-dim summary vector."""
@@ -251,8 +253,9 @@ class OpenSmileExtractor:
     def extract_arrays(self, waveforms: Mapping[str, np.ndarray],
                        verbose: bool = True) -> Tuple[List[str], np.ndarray]:
         """Batched extraction, the numpy core: files grouped by length bucket,
-        each group split into sub-batches of ``pipeline_rows`` stacked files.
-        Returns (names, features (N, 912) float32; 911 columns with
+        each group split into sub-batches of ``pipeline_rows`` stacked files,
+        up to ``_MAX_INFLIGHT`` sub-batch chains queued at a time and read in
+        order. Returns (names, features (N, 912) float32; 911 columns with
         ``reference_compat``), rows in bucket order. A clip shorter than one
         analysis frame is dropped with a logged error."""
         groups: Dict[int, List[Tuple[str, np.ndarray]]] = {}
@@ -262,13 +265,22 @@ class OpenSmileExtractor:
         rows = self.pipeline_rows if self.pipeline_rows > 0 else 1 << 30
         names: List[str] = []
         vecs: List[np.ndarray] = []
+
+        def read(part, chain: Deferred) -> None:
+            f_sma, f_de = chain.result()
+            for i, (name, _) in enumerate(part):
+                names.append(name)
+                vecs.append(_functional_vec(f_sma[i], f_de[i]))
+
+        pending: List[Tuple[List[Tuple[str, np.ndarray]], Deferred]] = []
         for bucket, items in sorted(groups.items()):
             for s in range(0, len(items), rows):
                 part = items[s : s + rows]
-                f_sma, f_de = self._sub_batch(bucket, [x for _, x in part])
-                for i, (name, _) in enumerate(part):
-                    names.append(name)
-                    vecs.append(_functional_vec(f_sma[i], f_de[i]))
+                pending.append((part, self._dispatch(bucket, [x for _, x in part])))
+                if len(pending) >= _MAX_INFLIGHT:
+                    read(*pending.pop(0))
+        for entry in pending:
+            read(*entry)
         n_cols = len(feature_columns(self.config.reference_compat))
         feats = np.zeros((0, n_cols), np.float32)
         if vecs:

@@ -11,13 +11,18 @@ Counterpart of ``robust_speech_analysis_framework_tpu/ops/framing.py``:
 * :func:`resample_buffer`: the whole buffer resampled on the device;
 * :class:`Deferred` / :func:`collect`: a result whose kernels are queued,
   fetched with others behind ONE synchronisation, so a level of independent
-  stages waits for the card once, not once per stage.
+  stages waits for the card once, not once per stage;
+  :func:`queue_fetch`: a result whose copy to the host is queued at once and
+  waited for alone, so chains queued after it keep the card busy;
+* :func:`upload` / :func:`upload_pcm_f32`: host arrays to the device without
+  waiting for the work queued there (through pinned buffers), the latter at
+  half the bytes for 16-bit PCM.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, List, NamedTuple
+from typing import Any, Callable, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -35,10 +40,9 @@ def _map_tensors(tree: Any, fn: Callable[[torch.Tensor], Any]) -> Any:
     return tree
 
 
-def _to_host(tree: Any) -> Any:
-    """``tree`` with every tensor as a numpy array. CUDA tensors are copied
-    into pinned buffers without blocking, then the device is synchronised
-    once for all of them."""
+def _stage(tree: Any):
+    """(``tree`` with each CUDA tensor's copy into a pinned host buffer
+    queued without blocking, whether any tensor was on the card)."""
     on_card = []
 
     def stage(t: torch.Tensor) -> torch.Tensor:
@@ -48,7 +52,14 @@ def _to_host(tree: Any) -> Any:
         on_card.append(t)
         return torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t, non_blocking=True)
 
-    staged = _map_tensors(tree, stage)
+    return _map_tensors(tree, stage), bool(on_card)
+
+
+def _to_host(tree: Any) -> Any:
+    """``tree`` with every tensor as a numpy array. CUDA tensors are copied
+    into pinned buffers without blocking, then the device is synchronised
+    once for all of them."""
+    staged, on_card = _stage(tree)
     if on_card:
         torch.cuda.synchronize()
     return _map_tensors(staged, torch.Tensor.numpy)
@@ -79,6 +90,59 @@ def collect(deferreds: List[Deferred]) -> List[Any]:
     the host behind one synchronisation, then each finalizer runs."""
     host = _to_host([d.arrays for d in deferreds])
     return [d.finalize(h) for d, h in zip(deferreds, host)]
+
+
+def queue_fetch(arrays: Any, finalize: Callable[[Any], Any]) -> Deferred:
+    """A :class:`Deferred` whose device→host copies are queued now, into
+    pinned buffers behind the work queued so far, and whose result waits for
+    those copies alone (an event), not for work queued after them: a caller
+    that keeps several chains in flight reads the oldest while the card runs
+    the others."""
+    staged, on_card = _stage(arrays)
+    if not on_card:
+        return Deferred(staged, finalize)
+    done = torch.cuda.Event()
+    done.record()
+
+    def after_copies(host):
+        done.synchronize()
+        return finalize(host)
+
+    return Deferred(staged, after_copies)
+
+
+def upload(a, device: torch.device) -> torch.Tensor:
+    """A host array or CPU tensor, copied to ``device``. To the card it goes
+    through a pinned buffer without blocking: a blocking copy would first
+    wait for every kernel queued on the stream."""
+    t = torch.as_tensor(a)
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device, copy=True)
+
+
+def _pcm_int16(a: np.ndarray) -> Optional[np.ndarray]:
+    """``a`` × 32768 as int16 when every sample is exactly n/32768 with n in
+    [−32768, 32767] (16-bit PCM), else None."""
+    q = a * 32768.0
+    qi = np.round(q)
+    if a.size and abs(float(qi.max(initial=0.0))) <= 32767 \
+            and abs(float(qi.min(initial=0.0))) <= 32768 \
+            and bool((q == qi).all()):
+        return qi.astype(np.int16)
+    return None
+
+
+def upload_pcm_f32(a: np.ndarray, device: DeviceLike = "cuda") -> torch.Tensor:
+    """A float32 array on ``device``, uploaded as int16 and scaled by 2^-15
+    there when it is 16-bit PCM (half the bytes), as float32 otherwise. The
+    scaling is exact in float32, so both routes give the same bits."""
+    dev = resolve_device(device)
+    a = np.ascontiguousarray(a, np.float32)
+    q = _pcm_int16(a)
+    if q is None:
+        return upload(a, dev)
+    return upload(q, dev).to(torch.float32) * (1.0 / 32768.0)
 
 
 def gather_frames(x_cat: torch.Tensor, starts: torch.Tensor, win_len: int) -> torch.Tensor:
@@ -136,16 +200,7 @@ def corpus_buffer(xs, pad: int = 4096, align: int = 8, device: DeviceLike = "cud
         pieces.append(np.pad(x, (0, pad + extra)).astype(np.float32))
         offset += len(x) + pad + extra
     cat = np.concatenate(pieces) if pieces else np.zeros(0, np.float32)
-    q = cat * 32768.0
-    qi = np.round(q)
-    if cat.size and abs(float(qi.max(initial=0.0))) <= 32767 \
-            and abs(float(qi.min(initial=0.0))) <= 32768 \
-            and bool((q == qi).all()):
-        i16 = torch.from_numpy(qi.astype(np.int16)).to(dev)
-        x_cat = i16.to(torch.float32) * (1.0 / 32768.0)
-    else:
-        x_cat = torch.from_numpy(cat).to(dev)
-    return CorpusBuffer(xs, offsets, pad, x_cat)
+    return CorpusBuffer(xs, offsets, pad, upload_pcm_f32(cat, dev))
 
 
 class _LengthOnly(np.ndarray):

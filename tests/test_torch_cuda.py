@@ -326,9 +326,93 @@ def test_viterbi_kernels_equal_plain_versions(cuda_device, b, t, c, scheme):
     assert torch.equal(path, viterbi.viterbi_path_reference(lf, v, local, *w))
 
 
+def test_period_march_kernel_matches_plain_version(cuda_device):
+    """The period march kernel against its plain version on the card, over
+    speech-like files with unvoiced stretches, digital silence under a
+    voiced contour and a lane that hits its cap: one launch; ≥ 99.9 % of
+    boundaries equal (both sum in float64, in other orders), amplitudes and
+    correlations within 1e-6 where they agree, zero rows past each count."""
+    from robust_speech_analysis_framework_tpu_torch.ops.cuda import jitter as march_ops
+
+    sr, hop = 16000, 160
+    waves = [_mshds_speech(s, f, i).astype(np.float32)
+             for i, (s, f) in enumerate(((2.5, 110.0), (1.7, 180.0), (3.0, 230.0)))]
+    waves[1][int(0.8 * sr):] = 0.0  # exact zeros under a voiced contour
+    stack = np.zeros((len(waves), max(len(x) for x in waves)), np.float32)
+    f0 = np.zeros((len(waves), stack.shape[1] // hop), np.float32)
+    for i, x in enumerate(waves):
+        stack[i, : len(x)] = x
+        frames = np.arange(len(x) // hop)
+        f0[i, : len(frames)] = np.where(frames % 60 < 42, 100.0 + 60.0 * i, 0.0)
+    f0[1, : len(waves[1]) // hop] = 170.0
+    ns = torch.tensor([len(x) for x in waves], dtype=torch.int32)
+    nf = torch.tensor([len(x) // hop for x in waves], dtype=torch.int32)
+    for p_max in (stack.shape[1] // 16, 40):
+        args = (float(sr), hop, 0.25, 40.0, p_max)
+        x, f, n, m = (t.to(cuda_device) for t in (torch.from_numpy(stack), torch.from_numpy(f0),
+                                                  ns, nf))
+        before = march_ops.march_periods.launches
+        card = march_ops.march_periods(x, f, n, m, *args)
+        torch.cuda.synchronize()
+        assert march_ops.march_periods.launches == before + 1
+        plain = march_ops.march_periods_reference(x, f, n, m, *args)
+        card, plain = [[t.cpu().numpy() for t in out] for out in (card, plain)]
+        assert (card[4] > 0).all()
+        if p_max == 40:
+            assert (card[4] == 40).all() and (plain[4] == 40).all()
+        for i in range(len(waves)):
+            k = min(card[4][i], plain[4][i])
+            assert abs(int(card[4][i]) - int(plain[4][i])) <= max(1, k // 1000)
+            same = card[0][i, :k] == plain[0][i, :k]
+            assert same.mean() >= 0.999
+            np.testing.assert_allclose(card[2][i, :k][same], plain[2][i, :k][same], atol=1e-6)
+            np.testing.assert_allclose(card[3][i, :k][same], plain[3][i, :k][same], atol=1e-6)
+            for t in card[:4]:
+                assert not t[i, card[4][i]:].any()
+
+
+def test_resumed_train_state_on_card_takes_the_uninterrupted_step(cuda_device, tmp_path):
+    """Two train steps on the card, a whole-state checkpoint, a restore into
+    a fresh state, one more step on each: parameters, BatchNorm statistics
+    and Adam's moments within 3e-7 (the card's run-to-run spread of a step:
+    cuDNN's backward adds in varying orders), the same rate and step counts."""
+    from robust_speech_analysis_framework_tpu_torch.train import checkpoints
+
+    rng = np.random.default_rng(1)
+    batches = [(rng.normal(size=(4, 64, 12)).astype(np.float32), np.array([64, 50, 33, 20]),
+                rng.integers(0, 2, size=4)) for _ in range(3)]
+    trainer = loops.Trainer(CNNLSTM(input_dim=12, cnn_out_channels=8, lstm_hidden_dim=8),
+                            device=cuda_device)
+
+    def step(state, i):
+        x, lengths, y = batches[i]
+        trainer.train_step(state, x, lengths, y, torch.Generator(device=cuda_device)
+                           .manual_seed(i), dropout_rate=0.5)
+
+    whole = trainer.init_state(seed=3, lr=1e-3)
+    step(whole, 0)
+    step(whole, 1)
+    whole.lr = 1e-4  # as after a plateau decay
+    checkpoints.save_train_state(str(tmp_path), whole, step=2)
+    resumed = checkpoints.restore_train_state(str(tmp_path),
+                                              trainer.init_state(seed=9, lr=0.5), step=2)
+    step(whole, 2)
+    step(resumed, 2)
+    assert resumed.lr == whole.lr == 1e-4
+    sa, sb = whole.model.state_dict(), resumed.model.state_dict()
+    for key in sa:
+        assert float((sa[key].double() - sb[key].double()).abs().max()) <= 3e-7, key
+    oa, ob = whole.optimizer.state_dict()["state"], resumed.optimizer.state_dict()["state"]
+    assert oa.keys() == ob.keys()
+    for i in oa:
+        assert float(oa[i]["step"]) == float(ob[i]["step"]) == 3.0
+        for key in ("exp_avg", "exp_avg_sq"):
+            assert float((oa[i][key] - ob[i][key]).abs().max()) <= 3e-7, (i, key)
+
+
 def test_opensmile_on_card_matches_cpu(cuda_device):
-    """Two short speech-like files through the extractor on the card (K7 per
-    sub-batch) and on the CPU, with the tolerance families of the JAX
+    """Two short speech-like files through the extractor on the card (K7 and
+    the period march per sub-batch) and on the CPU, with the tolerance families of the JAX
     package's batched-vs-serial test."""
     from robust_speech_analysis_framework_tpu_torch.features.opensmile import (
         OpenSmileExtractor,
@@ -343,9 +427,13 @@ def test_opensmile_on_card_matches_cpu(cuda_device):
         voiced = sum(np.sin(2 * np.pi * k * (125 + 20 * i) * t) / k for k in range(1, 12))
         x = 0.3 * np.where((t % 0.6) < 0.42, 1.0, 0.02) * voiced / np.abs(voiced).max()
         waves[f"w{i}.wav"] = (x + 0.002 * rng.normal(size=len(t))).astype(np.float32)
-    before = viterbi.viterbi_path.launches
+    from robust_speech_analysis_framework_tpu_torch.ops.cuda import jitter as march_ops
+
+    before = viterbi.viterbi_path.launches, march_ops.march_periods.launches
     names, card = OpenSmileExtractor(device=cuda_device).extract_arrays(waves, verbose=False)
-    assert viterbi.viterbi_path.launches == before + 2  # one per bucket
+    # one K7 and one period march per sub-batch, here one per bucket
+    assert (viterbi.viterbi_path.launches, march_ops.march_periods.launches) == (
+        before[0] + 2, before[1] + 2)
     cpu_names, cpu = OpenSmileExtractor(device="cpu").extract_arrays(waves, verbose=False)
     assert names == cpu_names and card.shape == (2, 912) and np.isfinite(card).all()
     rel = np.abs(card - cpu) / np.maximum(np.abs(cpu), 1e-3)

@@ -30,9 +30,10 @@ from robust_speech_analysis_framework_tpu_torch.models.svm_device import smo_lin
 from robust_speech_analysis_framework_tpu_torch.models.wav2vec2 import Wav2Vec2Config
 from robust_speech_analysis_framework_tpu_torch.ops.cepstrum import cpps_segments_batch
 from robust_speech_analysis_framework_tpu_torch.ops.formants import formant_track_burg_batch
-from robust_speech_analysis_framework_tpu_torch.ops.framing import corpus_buffer
+from robust_speech_analysis_framework_tpu_torch.ops.framing import corpus_buffer, upload_pcm_f32
 from robust_speech_analysis_framework_tpu_torch.ops.harmonicity import harmonicity_cc_batch
 from robust_speech_analysis_framework_tpu_torch.ops.intensity import intensity_contour_batch
+from robust_speech_analysis_framework_tpu_torch.ops.jitter import mark_periods_batch
 from robust_speech_analysis_framework_tpu_torch.ops.pitch import (
     PitchParams,
     PitchTrack,
@@ -116,7 +117,8 @@ def _tiny_cv_inputs():
               "pitch_batch", "intensity_batch", "harmonicity_batch", "pulses_batch",
               "moments_batch", "formants_batch", "cpps_batch", "mshds_arrays", "mshds_single",
               "smo_batch", "standard_svm", "nested_svm", "host_svm", "extract_tables",
-              "svm_experiments", "cnn_lstm_experiments", "flagship_entry"])
+              "svm_experiments", "cnn_lstm_experiments", "flagship_entry", "upload_pcm_f32",
+              "march_batch"])
 def test_entry_points_default_to_cuda(entry):
     hp = {"learning_rate": 1e-3, "cnn_out_channels": 8, "lstm_hidden_dim": 8}
     wave = [np.sin(np.arange(4000) / 10.0)]  # 0.25 s at 16 kHz
@@ -185,6 +187,11 @@ def test_entry_points_default_to_cuda(entry):
         "cnn_lstm_experiments": lambda: torch.device("cuda") if experiments.cnn_lstm_experiments(
             {}, [], "unwritten") is not None else None,
         "flagship_entry": lambda: flagship_entry()[1][1].device,
+        # openSMILE's device chain given host arrays
+        "upload_pcm_f32": lambda: upload_pcm_f32(np.float32(wave)).device,
+        "march_batch": lambda: mark_periods_batch(
+            np.float32(wave), 16000, np.full((1, 23), 160.0, np.float32), [4000], [23],
+            defer=True).arrays[0].device,
     }[entry]
     if torch.cuda.is_available():
         assert build().type == "cuda"

@@ -12,8 +12,9 @@ end to end. Tolerances, each with its reason:
 * whole extraction: the families of the JAX package's own batched-vs-serial
   test (``tests/test_opensmile.py:298-310``): median relative difference
   < 1e-5, mean < 2e-4 off the voice-quality columns, mean < 5e-2 on them
-  (the JAX batch marches periods on the device in float32, the port on the
-  host in float64);
+  (both batches march periods on the device, the JAX package scoring lags
+  in float32 through DFT correlations, the port with float64 sums: the
+  plain version of its march kernel here);
 * the numpy copies (bucketing, period march, conf parser) and the prefix
   sums: bit-equal.
 """
@@ -39,6 +40,7 @@ from robust_speech_analysis_framework_tpu_torch.ops import functionals as port_f
 from robust_speech_analysis_framework_tpu_torch.ops import jitter as port_jitter
 from robust_speech_analysis_framework_tpu_torch.ops import shs_pitch as port_shs
 from robust_speech_analysis_framework_tpu_torch.ops.prefix_sum import cumsum
+from tests.test_torch_train import one_torch_thread  # noqa: F401  (autouse fixture)
 
 # the JAX package's ops/__init__ re-exports a function named shs_pitch
 jax_shs = importlib.import_module("robust_speech_analysis_framework_tpu.ops.shs_pitch")
@@ -312,3 +314,40 @@ def test_dataframe_front_door(tmp_path, capsys, port_batch):
     assert "duplicate basename" in logged and "x.wav" in logged
     empty = port_os.extract_opensmile_features(pd.DataFrame({"filepath": []}), device="cpu")
     assert empty.empty and list(empty.columns) == ["filename"] + port_os.feature_columns()
+
+
+def test_pipelined_sub_batches_wrap_the_window(monkeypatch):
+    """``pipeline_rows=1`` over five files: five sub-batch chains, three
+    queued before the oldest is read, so the window wraps. Chains are queued
+    and read in order, and the rows equal a run with a window of one, bit
+    for bit."""
+    waves = {f"p{i}.wav": _speech(0.5 + 0.1 * i, 125 + 10 * i, 10 + i) for i in range(5)}
+    events = []
+
+    def spy(ex):
+        real = ex._dispatch
+
+        def dispatch(bucket, part):
+            i = len([e for e in events if e[0] == "queue"])
+            events.append(("queue", i))
+            chain = real(bucket, part)
+            finalize = chain.finalize
+            chain.finalize = lambda host: (events.append(("read", i)), finalize(host))[1]
+            return chain
+
+        ex._dispatch = dispatch
+        return ex
+
+    wide = spy(port_os.OpenSmileExtractor(pipeline_rows=1, device="cpu"))
+    names, feats = wide.extract_arrays(waves, verbose=False)
+    assert [e for e in events] == [("queue", 0), ("queue", 1), ("queue", 2), ("read", 0),
+                                   ("queue", 3), ("read", 1), ("queue", 4), ("read", 2),
+                                   ("read", 3), ("read", 4)]
+    events.clear()
+    monkeypatch.setattr(port_os, "_MAX_INFLIGHT", 1)
+    one = spy(port_os.OpenSmileExtractor(pipeline_rows=1, device="cpu"))
+    names1, feats1 = one.extract_arrays(waves, verbose=False)
+    assert events == [(kind, i) for i in range(5) for kind in ("queue", "read")]
+    assert names == names1 and sorted(names) == sorted(waves)
+    np.testing.assert_array_equal(feats, feats1)
+    assert feats.shape == (5, 912) and np.isfinite(feats).all()
