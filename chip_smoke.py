@@ -150,6 +150,23 @@ without them. Phases, each of which raises on failure:
     ``Predictor.from_checkpoint`` loads; the wall of each extraction, of
     the SVM half and of each CNN-LSTM experiment, and peak memory.
 
+14. multidevice (the multi-device code, over grids that repeat the one
+    card: its walls measure the split's overhead, not multi-GPU speed):
+    ``dryrun_multichip(4)`` over ``[cuda:0] * 4`` (a dp 2 x mp 2 sharded
+    flagship train step, a dp-split openSMILE frame stage, lane-split
+    trials, the CLI's extraction core over the grid), counters reset just
+    before and read just after it, the lanes and the extractors below (K3,
+    K4, its pre-pass, dWh, K1, K6, K7 and the march each launched, K2
+    not); the sharded step against the single-device step from the same
+    weights (MD_STEP_TOL) with both walls; ``train_trials_device`` of 8
+    lanes over dp 2 against dp 1 (LANE_TOL); openSMILE ``extract_arrays``
+    of the corpus's first sub-batches over dp 2 (rows bit-equal) and MSHDS
+    ``devices=[cuda:0] * 2`` over four files (MSHDS_TOL); the full-width
+    Wav2Vec2-base at dp 2 x mp 2 against ``mesh=None`` at every transfer
+    dtype, its resident buffer, and bf16; ``initialize_distributed`` with
+    ``WORLD_SIZE=1`` and the multi-host helpers over an NCCL world of one
+    opened on a ``file://`` store.
+
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.
 """
@@ -182,6 +199,9 @@ from robust_speech_analysis_framework_tpu_torch.eval.splits import (
 )
 from robust_speech_analysis_framework_tpu_torch.features import opensmile as opensmile_mod
 from robust_speech_analysis_framework_tpu_torch.features.wav2vec2 import Wav2Vec2Extractor
+from robust_speech_analysis_framework_tpu_torch.features.wav2vec2 import (
+    _transfer_name as w2v_transfer_name,
+)
 from robust_speech_analysis_framework_tpu_torch.models.cnn_lstm import (
     CNNLSTM,
     build_cnn_lstm,
@@ -2028,9 +2048,10 @@ def moments_stage_card_vs_cpu(xs, dev: torch.device) -> None:
         raise AssertionError("the spectral-moments stage on the card disagrees with the CPU")
 
 
-def mshds_card_vs_cpu(card: np.ndarray, cpu: np.ndarray, seconds, f0s) -> None:
-    """The shortest files' 25 features, card beside CPU, each held to its
-    tolerance; NaN masks equal."""
+def mshds_card_vs_cpu(card: np.ndarray, cpu: np.ndarray, seconds, f0s,
+                      labels: tuple = ("card", "CPU")) -> None:
+    """The shortest files' 25 features, card beside CPU (or the two runs
+    ``labels`` names), each held to its tolerance; NaN masks equal."""
     bad = []
     for k, name in enumerate(mshds_mod.FEATURE_NAMES):
         rtol, atol = MSHDS_TOL[name]
@@ -2046,11 +2067,11 @@ def mshds_card_vs_cpu(card: np.ndarray, cpu: np.ndarray, seconds, f0s) -> None:
         if not ok:
             bad.append(name)
     for i in range(len(cpu)):
-        log(f"[mshds] file {i} ({seconds[i]:.1f} s, f0 {f0s[i]:.1f} Hz), card / CPU: "
-            + ", ".join(f"{n} {a:.6g} / {b:.6g}" for n, a, b in
-                        zip(mshds_mod.FEATURE_NAMES, card[i], cpu[i])))
+        log(f"[mshds] file {i} ({seconds[i]:.1f} s, f0 {f0s[i]:.1f} Hz), {labels[0]} / "
+            f"{labels[1]}: " + ", ".join(f"{n} {a:.6g} / {b:.6g}" for n, a, b in
+                                         zip(mshds_mod.FEATURE_NAMES, card[i], cpu[i])))
     if bad:
-        raise AssertionError(f"MSHDS features on the card disagree with the CPU: {bad}")
+        raise AssertionError(f"MSHDS features, {labels[0]} vs {labels[1]}, disagree: {bad}")
 
 
 # --- w2v: the extraction that feeds the main path -------------------------------
@@ -2655,6 +2676,255 @@ def experiments_phase(dev: torch.device, tmp: str) -> dict:
     return {name: extract_launches[name] + dl_launches[name] for name in counters}
 
 
+# ---------------------------------------------------------------------------
+# multidevice: the multi-device code over one card, repeated
+# ---------------------------------------------------------------------------
+
+MD_N = 4  # dryrun_multichip(4): dp 2 x mp 2 over [cuda:0] * 4
+# the sharded flagship step vs the single-device step, Adam eps PARITY_ADAM_EPS
+# (a near-zero gradient's first Adam step would otherwise amplify its last
+# bits): loss, parameters (floor: the rate) and BatchNorm statistics relative
+# to each tensor's scale, Adam moments to the model's largest; gradients and
+# statistics summed in another order, cuDNN at 1 sequence a shard vs 4
+MD_STEP_TOL = 1e-5
+MD_STEPS = 3  # timed steps of each, after the compared one
+MD_LANES = 8
+MD_SEQS, MD_FRAMES = 16, (256, 1024)
+MD_OS_FILES = 8  # the openSMILE corpus's 8 shortest files: its first sub-batches
+MD_MSHDS_FILES = 4  # the MSHDS corpus's longest files: a sub-corpus of 2 keeps the device march
+MD_W2V_CLIPS = (3.0, 5.5, 8.9, 12.0)  # seconds: 9 chunks, one batch of W2V_BATCH
+# full-width Wav2Vec2-base at dp 2 x mp 2 vs mesh=None, relative to the
+# largest magnitude: row-parallel partial products summed over 12 layers
+MD_W2V_TOL = 1e-4
+MD_W2V_BF16_COS = 0.999  # bf16: partial products each rounded to bfloat16
+MD_FILES = [f"f{i}.wav" for i in range(5)]
+
+
+def _md_timed(fn):
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - start
+
+
+def _md_step_check(dev: torch.device, grid) -> None:
+    """The sharded flagship step against the single-device step, from the
+    same weights, batch and dropout generator; walls of both."""
+    from robust_speech_analysis_framework_tpu_torch import entry as entry_mod
+
+    x, lengths, y = entry_mod.dryrun_batch(MD_N)
+    trainer = loops.Trainer(CNNLSTM(**entry_mod.FLAGSHIP), adam_eps=PARITY_ADAM_EPS, device=dev)
+    sd = {k: v.detach().clone() for k, v in trainer.init_state(0, 1e-3).model.state_dict().items()}
+    sharded = loops.ShardedTrainState.shard(trainer.init_state(0, 1e-3, sd), grid)
+    single = trainer.init_state(0, 1e-3, sd)
+
+    def gen():
+        return torch.Generator(device=dev).manual_seed(1)
+
+    loss_sh = float(loops.sharded_train_step(sharded, x, lengths, y, gen()))
+    loss_1 = float(trainer.train_step(single, x, lengths, y, gen()))
+    ours, ref = sharded.state_dict(), single.model.state_dict()
+    worst = {"loss": abs(loss_sh - loss_1) / abs(loss_1)}
+    for name, v in ref.items():
+        if v.dtype.is_floating_point:
+            floor = 1e-3 if "running" not in name else 1e-30
+            worst[name] = float((ours[name] - v).abs().max()) / max(float(v.abs().max()), floor)
+    params = dict(single.model.named_parameters())
+    moments = sharded.moments()
+    for k, key in enumerate(("exp_avg", "exp_avg_sq")):
+        scale = max(float(single.optimizer.state[params[n]][key].abs().max()) for n in moments)
+        for n, pair in moments.items():
+            worst[f"{n}:{key}"] = float(
+                (pair[k] - single.optimizer.state[params[n]][key]).abs().max()) / scale
+    name = max(worst, key=worst.get)
+    walls_sh = [_md_timed(lambda: loops.sharded_train_step(sharded, x, lengths, y, gen()))[1]
+                for _ in range(MD_STEPS)]
+    walls_1 = [_md_timed(lambda: trainer.train_step(single, x, lengths, y, gen()))[1]
+               for _ in range(MD_STEPS)]
+    log(f"[multidevice] sharded flagship step (dp 2 x mp 2, B={MD_N} T=32, dropout on, Adam eps "
+        f"{PARITY_ADAM_EPS}) vs the single-device step: loss {loss_sh:.7f} vs {loss_1:.7f}; worst "
+        f"relative difference {worst[name]:.3e} at {name} over {len(worst)} checks (tol "
+        f"{MD_STEP_TOL}); step wall median {statistics.median(walls_sh) * 1e3:.3f} ms sharded vs "
+        f"{statistics.median(walls_1) * 1e3:.3f} ms single")
+    if worst[name] > MD_STEP_TOL:
+        raise AssertionError("the sharded train step disagrees with the single-device step")
+
+
+def _md_trials(dev: torch.device, grid) -> None:
+    """8 lanes over dp = 2 against dp = 1, lane by lane."""
+    rng = np.random.default_rng(11)
+    seqs = [rng.standard_normal((int(n), DIM), dtype=np.float32)
+            for n in rng.integers(MD_FRAMES[0], MD_FRAMES[1] + 1, size=MD_SEQS)]
+    labels = np.arange(MD_SEQS) % 2
+    for s, lab in zip(seqs, labels):
+        s[:, :16] += 0.3 * lab
+    view = loops.DeviceCorpus(seqs, device=dev).view(np.arange(MD_SEQS))
+    tr, va = view.subset(np.arange(12)), view.subset(np.arange(12, MD_SEQS))
+    trainer = loops.Trainer(CNNLSTM(input_dim=DIM, cnn_out_channels=128, lstm_hidden_dim=64,
+                                    activation_fn="gelu"), adam_eps=PARITY_ADAM_EPS, device=dev)
+    lrs = list(np.geomspace(1e-4, 1e-3, MD_LANES))
+    rates = list(np.linspace(0.2, 0.5, MD_LANES))
+    cfg = loops.TrainConfig(learning_rate=lrs[0], epochs=2, patience=3, batch_size=4, seed=7,
+                            dropout_rate=rates[0], use_plateau=False, restore_best=False)
+    out = {}
+    for label, mesh in (("dp 1", None), ("dp 2", grid)):
+        def run():
+            states, hist = loops.train_trials_device(trainer, tr, labels[:12], va, labels[12:],
+                                                     cfg, lrs, rates, mesh=mesh)
+            logits = trainer.eval_logits_trials_deferred(states, va, cfg).result()
+            return hist.result(), logits
+        out[label] = _md_timed(run)
+    (h1, l1), w1 = out["dp 1"]
+    (h2, l2), w2 = out["dp 2"]
+    hist_err = max(abs(a - b) / abs(b) for (th1, vh1), (th2, vh2) in zip(h1, h2)
+                   for a, b in zip(th2 + vh2, th1 + vh1))
+    logit_err = float(np.abs(l2 - l1).max() / np.abs(l1).max())
+    log(f"[multidevice] train_trials_device {MD_LANES} lanes (cnn 128, lstm 64, {MD_SEQS} seqs of "
+        f"{MD_FRAMES[0]}–{MD_FRAMES[1]} x {DIM}, 2 epochs): dp 2 (two groups of "
+        f"{MD_LANES // 2}) vs dp 1: histories max rel {hist_err:.3e}, eval logits max rel "
+        f"{logit_err:.3e} (tol {LANE_TOL}); wall {w2:.3f} s vs {w1:.3f} s")
+    if not (len(h1) == len(h2) == MD_LANES and hist_err <= LANE_TOL and logit_err <= LANE_TOL
+            and all(len(a[0]) == len(b[0]) for a, b in zip(h1, h2))):
+        raise AssertionError("lanes split over dp disagree with the single-device lanes")
+
+
+def _md_extractors(dev: torch.device, grid2) -> None:
+    """openSMILE and MSHDS split over two entries of the card against one."""
+    corpus = _opensmile_corpus()
+    first = dict(sorted(corpus.items(), key=lambda kv: len(kv[1]))[:MD_OS_FILES])
+    ex = opensmile_mod.OpenSmileExtractor(device=dev)
+    ex.extract_arrays(first, verbose=False)  # first pass: every shape once
+    (names1, f1), w1 = _md_timed(lambda: ex.extract_arrays(first, verbose=False))
+    (names2, f2), w2 = _md_timed(lambda: ex.extract_arrays(first, verbose=False, mesh=grid2))
+    log(f"[multidevice] openSMILE extract_arrays, {MD_OS_FILES} files "
+        f"({sum(len(x) for x in first.values()) / SR:.1f} audio-s), mesh dp 2 (a stream each) "
+        f"vs none: rows equal {names1 == names2 and np.array_equal(f1, f2)} (max|d| "
+        f"{float(np.abs(f1 - f2).max()):.3e}); wall {w2:.3f} s vs {w1:.3f} s")
+    if not (names1 == names2 and np.array_equal(f1, f2) and np.isfinite(f2).all()):
+        raise AssertionError("openSMILE rows split over dp differ from the single-device rows")
+
+    seconds = np.linspace(MSHDS_MIN_S, MSHDS_MAX_S, MSHDS_FILES)[-MD_MSHDS_FILES:]
+    f0s = np.linspace(*MSHDS_F0, MSHDS_FILES)[-MD_MSHDS_FILES:]
+    xs = [_speech(s, f0, 200 + i).astype(np.float64) for i, (s, f0) in enumerate(zip(seconds, f0s))]
+    mshds_mod.extract_mshds_arrays(xs, SR, device=dev)  # first pass
+    m1, w1 = _md_timed(lambda: mshds_mod.extract_mshds_arrays(xs, SR, device=dev))
+    m2, w2 = _md_timed(lambda: mshds_mod.extract_mshds_arrays(xs, SR, devices=[dev, dev]))
+    log(f"[multidevice] MSHDS-25, {MD_MSHDS_FILES} files of {seconds[0]:.1f}–{seconds[-1]:.1f} s, "
+        f"devices=[{dev}] * 2 (a sub-corpus and a host thread each) vs one device, feature by "
+        f"feature (MSHDS_TOL): wall {w2:.3f} s vs {w1:.3f} s")
+    mshds_card_vs_cpu(m2, m1, seconds, f0s, labels=("2 devices", "1 device"))
+
+
+def _md_w2v(dev: torch.device, grid) -> None:
+    """The full-width Wav2Vec2-base extractor at dp 2 x mp 2 against
+    mesh=None at every transfer dtype, the resident buffer and bf16."""
+    clips = {f"c{i}.wav": _speech(s, 120 + 20 * i, 300 + i) for i, s in enumerate(MD_W2V_CLIPS)}
+    for cdt in ("float32", "bfloat16"):
+        kw = dict(config=W2V_CONFIG, allow_random_init=True, batch_size=W2V_BATCH,
+                  compute_dtype=cdt)
+        one = Wav2Vec2Extractor(device=dev, **kw)
+        split = Wav2Vec2Extractor(mesh=grid, **kw)
+        transfers = {"float32": np.float32, **W2V_TRANSFERS} if cdt == "float32" \
+            else {"float32": np.float32}
+        for tname, tdtype in transfers.items():
+            one.transfer = split.transfer = w2v_transfer_name(tdtype)
+            split.extract_sequences(clips, verbose=False)  # first pass
+            a, w1 = _md_timed(lambda: one.extract_sequences(clips, verbose=False))
+            b, w2 = _md_timed(lambda: split.extract_sequences(clips, verbose=False))
+            ref = np.concatenate([a[k] for k in sorted(a)])
+            got = np.concatenate([b[k] for k in sorted(b)])
+            scale = float(np.abs(ref).max())
+            err = float(np.abs(got - ref).max()) / scale
+            cos = float((ref * got).sum() / np.sqrt((ref * ref).sum() * (got * got).sum()))
+            step = {"int16": 1 / 32767, "int24": 1 / (32767 * 254), "int8": 1 / 127,
+                    "float16": 2.0 ** -11}.get(tname, 0.0)
+            ok = sorted(a) == sorted(b) and (cos >= MD_W2V_BF16_COS if cdt == "bfloat16"
+                                             else err <= MD_W2V_TOL + step)
+            log(f"[multidevice] Wav2Vec2-base {cdt}, {tname} download, dp 2 x mp 2 vs mesh=None "
+                f"over {len(clips)} clips ({sum(MD_W2V_CLIPS):.1f} s): max|d| / max {err:.3e}, "
+                f"cosine {cos:.9f} (tol {MD_W2V_BF16_COS if cdt == 'bfloat16' else MD_W2V_TOL + step:.3g}); "
+                f"wall {w2:.3f} s vs {w1:.3f} s{'' if ok else '  <-- FAILS'}")
+            if not ok:
+                raise AssertionError(f"Wav2Vec2 split over the grid disagrees ({cdt}, {tname})")
+        if cdt == "float32":
+            one.transfer = split.transfer = "float32"
+            ra = one.extract_sequences_resident(clips, verbose=False)
+            rb = split.extract_sequences_resident(clips, verbose=False)
+            r_err = float((rb.x - ra.x).abs().max()) / float(ra.x.abs().max())
+            log(f"[multidevice] resident buffer through the grid: {tuple(rb.x.shape)} on "
+                f"{rb.x.device}, max|d| / max {r_err:.3e} (tol {MD_W2V_TOL})")
+            if not (rb.x.shape == ra.x.shape and r_err <= MD_W2V_TOL):
+                raise AssertionError("the resident Wav2Vec2 buffer through the grid disagrees")
+        del one, split
+        torch.cuda.empty_cache()
+
+
+def _md_multihost(dev: torch.device, tmp: str) -> None:
+    """The multi-host helpers over a world of one, over NCCL."""
+    import torch.distributed as dist
+
+    from robust_speech_analysis_framework_tpu_torch.parallel import distributed
+
+    saved = os.environ.get("WORLD_SIZE")
+    os.environ["WORLD_SIZE"] = "1"
+    try:
+        joined = distributed.initialize_distributed()
+    finally:
+        if saved is None:
+            del os.environ["WORLD_SIZE"]
+        else:
+            os.environ["WORLD_SIZE"] = saved
+    if joined:
+        raise AssertionError("initialize_distributed joined a world of one")
+    dist.init_process_group("nccl", init_method=f"file://{os.path.join(tmp, 'store')}",
+                            world_size=1, rank=0, device_id=dev)
+    try:
+        gathered = distributed.all_gather_host_objects({"rank": 0, "files": len(MD_FILES)})
+        files = distributed.shard_file_list(MD_FILES)
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    log(f"[multidevice] initialize_distributed with WORLD_SIZE=1: False; a world of one over "
+        f"{backend}: all_gather_host_objects {gathered}, shard_file_list kept {len(files)} of "
+        f"{len(MD_FILES)} files; group destroyed")
+    if not (backend == "nccl" and gathered == [{"rank": 0, "files": len(MD_FILES)}]
+            and files == MD_FILES):
+        raise AssertionError("the multi-host helpers over a world of one")
+
+
+def multidevice_phase(dev: torch.device, tmp: str) -> dict:
+    """The multi-device code on one card: the grid repeats the card, so each
+    split is cut, run and gathered for real, and each wall beside its
+    single-device wall measures the code's overhead, not multi-GPU speed."""
+    from robust_speech_analysis_framework_tpu_torch import entry as entry_mod
+    from robust_speech_analysis_framework_tpu_torch.parallel import make_mesh
+
+    log("[multidevice] every grid below repeats one card: its walls measure the split's "
+        "overhead beside the single-device walls, not multi-GPU speed")
+    grid = make_mesh(devices=[dev] * MD_N, mp=2)
+    grid2 = make_mesh(devices=[dev] * 2)
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    out, wall = _md_timed(lambda: entry_mod.dryrun_multichip(MD_N, devices=[dev] * MD_N,
+                                                             verbose=False))
+    log(f"[multidevice] dryrun_multichip({MD_N}) over {[str(d) for d in grid.devices]}: mesh "
+        f"{out['grid'].shape}, sharded flagship step loss {out['loss']:.4f}, lane logits "
+        f"{out['lane_logits'].shape}, extract rows {out['cli_extract_rows']}; wall {wall:.3f} s")
+    _md_trials(dev, grid2)
+    _md_extractors(dev, grid2)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    log(f"[multidevice] launches over dryrun_multichip, the lanes and the extractors: {launches}")
+    missing = [n for n, k in launches.items() if n != "lstm_scan" and k == 0]
+    if missing or launches["lstm_scan"]:
+        raise AssertionError(f"the multi-device path did not launch {missing} (or launched K2)")
+    _md_step_check(dev, grid)
+    _md_w2v(dev, grid)
+    _md_multihost(dev, tmp)
+    return launches
+
+
 def ptxas_report(text: str) -> list:
     """One line per kernel of ptxas's verbose output: its name with the
     integer template arguments, its registers and its spill bytes."""
@@ -2773,6 +3043,8 @@ def run(dev: torch.device, smi: str) -> None:
         checkpoint_phase(dev, tmp)
     opensmile = opensmile_phase(dev)
     mshds = mshds_phase(dev, records)
+    with tempfile.TemporaryDirectory() as tmp:
+        multidevice = multidevice_phase(dev, tmp)
 
     kernels = []
     for name, source, replaces in (
@@ -2788,7 +3060,8 @@ def run(dev: torch.device, smi: str) -> None:
         rec = records[name]
         by_path = {"serving": serving[name], "training": training[name], "cv": cv[name],
                    "cv-lanes": cv_lanes[name], "opensmile": opensmile[name],
-                   "mshds": mshds[name], "w2v": w2v[name], "experiments": experiments[name]}
+                   "mshds": mshds[name], "w2v": w2v[name], "experiments": experiments[name],
+                   "multidevice": multidevice[name]}
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(by_path.values()),

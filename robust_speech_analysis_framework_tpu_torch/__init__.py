@@ -7,9 +7,9 @@ package. Every kernel the JAX package wrote in Pallas for the TPU becomes a
 hand-written CUDA kernel under ``csrc/``, built with nvcc at first use; what
 XLA computed becomes plain PyTorch.
 
-Ported so far: the serving path, CNN-LSTM training and its cross-validation
-engines, openSMILE-912, MSHDS-25 and Wav2Vec2 extraction, and the corpus
-loader:
+Ported: the serving path, CNN-LSTM training and its cross-validation
+engines, openSMILE-912, MSHDS-25 and Wav2Vec2 extraction, the corpus loader,
+the experiment battery and CLI, and multi-device runs:
 
   audio/      WAV IO (a Python codec and the native batch decoder), polyphase
               resampling (torch and numpy), the STFT/mel/MFCC front end
@@ -29,7 +29,12 @@ loader:
   train/      the fold trainer (streaming and device-resident) and checkpoints
   eval/       splits, metrics and the CNN-LSTM cross-validation engines
   tune/       the TPE sampler
+  parallel/   the (dp, mp) device grid, the parameter and batch rules over it,
+              the multi-host helpers (torch.distributed)
+  utils/      throughput meters, stage timers, spans, traces, logging,
+              determinism checks, OOM downshift
   serving.py  Predictor: waveform / files / sequence → classification
+  entry.py    the flagship forward and dryrun_multichip (a sharded train step)
 
 Entry points run on the card (``device="cuda"``) unless the caller passes
 ``device="cpu"``; without a CUDA device and without that argument they raise.

@@ -13,9 +13,13 @@ these commands run the same workflows:
         --processed data/Processed_Features --corpus /data/Androids-Corpus \\
         --out results --models models
 
-Every command runs on the card unless given ``--device cpu``. The JAX CLI's
-``--devices``/``--mp`` mesh flags wait for the port's multi-device runs,
-and its ``bench`` command (which runs the JAX ``bench.py``) is not carried.
+Every command runs on the card unless given ``--device cpu``. ``extract``
+and ``cnnlstm`` take the JAX CLI's ``--devices``/``--mp`` flags: by default
+they split over every CUDA device when there are several
+(``parallel.mesh.auto_mesh``); ``--devices 1`` keeps one device;
+``--devices N --mp M`` lays an (N/M, M) grid over the first N CUDA devices,
+or over N CPU entries with ``--device cpu``. The JAX CLI's ``bench``
+command (which runs the JAX ``bench.py``) is not carried.
 """
 
 from __future__ import annotations
@@ -39,13 +43,37 @@ def _w2v2_precision_kwargs(precision: str) -> dict:
     return {}
 
 
+def _mesh_from_args(args):
+    """The ``mesh`` argument of ``--devices``/``--mp``: ``"auto"`` without
+    flags, None for ``--devices 1``, else an explicit (N/M, M) grid (over N
+    CPU entries with ``--device cpu``; raises when fewer than N CUDA
+    devices exist)."""
+    n, mp = args.devices, args.mp
+    if n is None:
+        if mp != 1:
+            raise SystemExit("error: --mp needs --devices")
+        return "auto"
+    if n == 1:
+        return None
+    from .parallel.mesh import make_mesh
+
+    if args.device == "cpu":
+        return make_mesh(devices=["cpu"] * n, mp=mp)
+    return make_mesh(n_devices=n, mp=mp)
+
+
 def _cmd_extract(args) -> int:
     from .experiments import extract_all_features
     from .features.wav2vec2 import Wav2Vec2Extractor
 
     features = args.features.split(",")
     extractor = None
+    mesh = _mesh_from_args(args)
     w2v2_kw = dict(_w2v2_precision_kwargs(args.wav2vec2_precision), device=args.device)
+    if mesh is not None:
+        from .parallel.mesh import resolve_mesh
+
+        w2v2_kw["mesh"] = resolve_mesh(mesh, args.device)
     if args.wav2vec2_checkpoint:
         extractor = Wav2Vec2Extractor.from_hf_checkpoint(args.wav2vec2_checkpoint, **w2v2_kw)
     elif args.allow_random_wav2vec2:
@@ -83,6 +111,7 @@ def _cmd_extract(args) -> int:
         opensmile_config=opensmile_config,
         verbose=not args.quiet,
         device=args.device,
+        mesh=mesh,
     )
     for name, path in paths.items():
         print(f"{name}: {path}")
@@ -123,6 +152,7 @@ def _cmd_cnnlstm(args) -> int:
         verbose=not args.quiet,
         trial_batch=args.trial_batch,
         device=args.device,
+        mesh=_mesh_from_args(args),
     )
     for name, r in results.items():
         df = r["results_df"]
@@ -172,6 +202,19 @@ def _add_device_flag(p) -> None:
     )
 
 
+def _add_mesh_flags(p) -> None:
+    p.add_argument(
+        "--devices", type=int, default=None,
+        help="devices to split over (default: every CUDA device when there are "
+             "several; --devices 1 keeps one device; with --device cpu, N CPU entries)",
+    )
+    p.add_argument(
+        "--mp", type=int, default=1,
+        help="model-parallel axis of the (dp, mp) grid (must divide --devices; "
+             "dp = devices / mp)",
+    )
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         prog="robust_speech_analysis_framework_tpu_torch",
@@ -216,6 +259,7 @@ def main(argv=None) -> int:
     p.add_argument("--force", action="store_true")
     p.add_argument("--quiet", action="store_true")
     _add_device_flag(p)
+    _add_mesh_flags(p)
     p.set_defaults(fn=_cmd_extract)
 
     p = sub.add_parser("svm", help="run the 18 SVM CV experiments")
@@ -248,6 +292,7 @@ def main(argv=None) -> int:
     p.add_argument("--force", action="store_true")
     p.add_argument("--quiet", action="store_true")
     _add_device_flag(p)
+    _add_mesh_flags(p)
     p.set_defaults(fn=_cmd_cnnlstm)
 
     p = sub.add_parser("predict", help="classify audio files with a trained model")

@@ -30,7 +30,17 @@ device until one :func:`~..ops.framing.collect` at the end of the run.
 Where it differs from the JAX package, by design:
 
 * Both engines take ``device`` (``"cuda"`` unless the caller asks for the
-  CPU) and no ``mesh``: that comes with the multi-device slice.
+  CPU). The nested engine also takes ``mesh`` (a
+  :class:`~..parallel.mesh.DeviceGrid`): its batched rounds split each
+  round's trial lanes over the grid's dp rows
+  (:func:`~..train.loops.train_trials_device`), the resident corpus lies on
+  every device of the grid, and the sequential search and the final
+  training run on the grid's lead device, as the JAX package runs them on
+  its default device.
+* A resident corpus that lies on one device and meets a grid is copied to
+  every device of it (:func:`_as_device_corpus`); the JAX package hands
+  such a corpus to its lane-sharded programs unchanged
+  (``eval/dl_cv.py:179``).
 * A ``Trainer`` here holds an architecture and a device, no compiled
   program, so the trainer cache lives for one engine call and is not shared
   by the process.
@@ -53,6 +63,7 @@ import torch
 from ..device import DeviceLike, resolve_device
 from ..models.cnn_lstm import CNNLSTM, stability_probe
 from ..ops.framing import Deferred, collect
+from ..parallel.mesh import DeviceGrid
 from ..train.loops import (
     DeviceCorpus,
     SeqView,
@@ -173,25 +184,43 @@ def _corpus_budget_bytes(device: torch.device) -> int:
     return _CORPUS_BUDGET_FALLBACK_BYTES
 
 
-def _as_device_corpus(X, device: DeviceLike = "cuda"):
+def _as_device_corpus(X, device: DeviceLike = "cuda", mesh: Optional[DeviceGrid] = None):
     """Wrap a sequence list as a resident-corpus view when it fits the
     budget; folds and trials then gather rows on the device instead of
     uploading their batches. A corpus over budget, or one whose allocation
-    fails, is left on the host with a logged warning and its folds stream."""
+    fails, is left on the host with a logged warning and its folds stream.
+
+    With ``mesh`` the corpus goes to the grid's lead device and is copied
+    from there to every other device of the grid, where its trial lanes
+    read it; a view of a corpus already resident (on any one device) is
+    copied to each device of the grid the same way, device to device, and
+    comes back as its view on the lead."""
+    if mesh is not None:
+        device = mesh.lead
     if isinstance(X, SeqView):  # already resident
-        return X
+        return X if mesh is None else _replicated(X, mesh)
     device = resolve_device(device)
     if DeviceCorpus.nbytes_estimate(X) > _corpus_budget_bytes(device):
         return X
     try:
         corpus = DeviceCorpus(X, device=device)
+        view = corpus.view(np.arange(len(X)))
+        return view if mesh is None else _replicated(view, mesh)
     except (torch.cuda.OutOfMemoryError, MemoryError) as e:
         # allocation failure only: any other error propagates
         logging.getLogger(__name__).warning(
             "resident-corpus upload failed (%s); streaming folds from host", e
         )
         return X
-    return corpus.view(np.arange(len(X)))
+
+
+def _replicated(view: SeqView, mesh: DeviceGrid) -> SeqView:
+    """``view``'s corpus copied to every device of ``mesh`` now (so a
+    failed copy raises here, not inside a trial thread); its view on the
+    grid's lead device."""
+    for dev in mesh.devices:
+        view.corpus.on(dev)
+    return view.on(mesh.lead)
 
 
 def _stability_vector(state: TrainState) -> np.ndarray:
@@ -356,6 +385,7 @@ def _inner_cv_scores_batch(
     seed: int,
     use_length_masking: bool = True,
     remat: bool = False,
+    mesh: Optional[DeviceGrid] = None,
 ) -> List[float]:
     """:func:`_inner_cv_score` of a BATCH of trials, in their order.
 
@@ -363,7 +393,8 @@ def _inner_cv_scores_batch(
     :func:`~..train.loops.train_trials_device` call per inner fold (a lane a
     trial) with its eval pass lane-batched too, and every eval pass is
     fetched in one collect: a round of K trials costs (architectures × inner
-    folds) fold runs instead of K × inner folds."""
+    folds) fold runs instead of K × inner folds. With ``mesh`` each group's
+    lanes split over the grid's dp rows."""
     inner = StratifiedKFold(n_splits=n_splits_inner, shuffle=True, random_state=seed)
     folds = list(inner.split(X_tv, y_tv))
     groups: Dict[tuple, List[int]] = {}
@@ -382,7 +413,7 @@ def _inner_cv_scores_batch(
             X_val = _subset(X_tv, val_idx)
             states, _ = train_trials_device(
                 trainer, _subset(X_tv, tr_idx), y_tv[tr_idx], X_val, y_tv[val_idx], cfg,
-                lrs, rates,
+                lrs, rates, mesh=mesh,
             )
             deferreds.append(trainer.eval_logits_trials_deferred(states, X_val, cfg))
             slots.append((idxs, y_tv[val_idx]))
@@ -464,14 +495,19 @@ def nested_cv(
     trial_batch: int = 1,
     remat: bool = False,
     device: DeviceLike = "cuda",
+    mesh: Optional[DeviceGrid] = None,
 ) -> Tuple[List[dict], List[dict], np.ndarray]:
     """The nested engine over aligned arrays: (results, fold_predictions,
     stability_weights), ``results`` one dict per outer fold with its
     ``best_params``. ``trial_batch`` > 1 runs the search in rounds of that
-    many trials (see :func:`run_dl_nested_cv`)."""
+    many trials (see :func:`run_dl_nested_cv`); with ``mesh`` a round's
+    lanes split over the grid's dp rows, and everything else runs on its
+    lead device (``device`` is then the lead)."""
     space = dict(search_space or DEFAULT_SEARCH_SPACE)
     y = np.asarray(y)
-    X = _as_device_corpus(X, device)
+    if mesh is not None:
+        device = mesh.lead
+    X = _as_device_corpus(X, device, mesh)
     cache = _TrainerCache(input_dim=_input_dim(X), device=device)
     outer = StratifiedKFold(n_splits=n_splits_outer, shuffle=True, random_state=seed)
 
@@ -500,7 +536,7 @@ def nested_cv(
                 scores = _inner_cv_scores_batch(
                     cache, _suggest_round(asked, space), X_tv, y_tv,
                     n_splits_inner, inner_epochs, inner_batch_size, seed,
-                    use_length_masking=use_length_masking, remat=remat,
+                    use_length_masking=use_length_masking, remat=remat, mesh=mesh,
                 )
                 for t, score in zip(asked, scores):
                     study.tell(t, score)
@@ -567,6 +603,7 @@ def run_dl_nested_cv(
     trial_batch: int = 1,
     remat: bool = False,
     device: DeviceLike = "cuda",
+    mesh: Optional[DeviceGrid] = None,
 ):
     """Nested CV: per-outer-fold TPE hyperparameter search + final training.
 
@@ -582,11 +619,13 @@ def run_dl_nested_cv(
     that is deterministic given the seed but differs from the sequential
     one. It takes the rounds where the outer fold's train part is resident
     or fits the device-fold budget, and the sequential search otherwise, as
-    the JAX package does.
+    the JAX package does. With ``mesh`` the rounds' lanes split over the
+    grid's dp rows (:func:`nested_cv`).
     """
     import pandas as pd
 
-    resolve_device(device)
+    if mesh is None:
+        resolve_device(device)
     X, y, _ = align_sequences_and_labels(sequences_dict, metadata_df)
     results, fold_predictions, weights = nested_cv(
         X, y, n_splits_outer=n_splits_outer, n_splits_inner=n_splits_inner,
@@ -594,6 +633,6 @@ def run_dl_nested_cv(
         inner_epochs=inner_epochs, inner_batch_size=inner_batch_size, seed=seed,
         search_space=search_space, verbose=verbose,
         use_length_masking=use_length_masking, trial_batch=trial_batch, remat=remat,
-        device=device,
+        device=device, mesh=mesh,
     )
     return pd.DataFrame(results), fold_predictions, weights

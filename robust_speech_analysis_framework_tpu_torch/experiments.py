@@ -26,9 +26,13 @@ and write the CSVs and to build the result frames.
 
 Where it differs from the JAX package, by design:
 
-* ``device`` (``"cuda"`` unless the caller asks for the CPU) replaces
-  ``mesh``; multi-device extraction and training come with the
-  multi-device slice.
+* ``device`` (``"cuda"`` unless the caller asks for the CPU) sits beside
+  ``mesh``. ``mesh="auto"`` (the default, as in the JAX package) resolves
+  to :func:`~.parallel.mesh.auto_mesh` on the card, None on one card or on
+  the CPU, so a single device runs exactly the single-device paths; a
+  :class:`~.parallel.mesh.DeviceGrid` (a CPU one too) splits the
+  extractors' batches and the trial lanes over it, and the rest runs on
+  its lead device.
 * The SVM engines take ``solver`` (``"batched"``: one SMO solve a run on
   the device, or ``"host"``: the float64 host solver fit by fit); the JAX
   package picks by backend.
@@ -50,7 +54,6 @@ from __future__ import annotations
 import dataclasses
 import os
 import pickle
-import time
 from typing import Any, Callable, Dict, Iterable, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
@@ -58,6 +61,8 @@ import numpy as np
 from .data.aggregate import concat_groups, participant_clips
 from .data.corpus import load_androids_rows
 from .device import DeviceLike, resolve_device
+from .parallel.mesh import MeshLike, resolve_mesh
+from .utils.profiling import ThroughputMeter, stage_timer
 
 METADATA_COLUMNS = [
     "unique_participant_id", "original_id_nn", "label", "gender", "age",
@@ -172,6 +177,7 @@ def extract_tables(
     sequences: Optional[Mapping[str, Mapping[str, np.ndarray]]] = None,
     verbose: bool = True,
     device: DeviceLike = "cuda",
+    mesh: MeshLike = "auto",
 ) -> Tuple[Dict[str, FeatureTable], Dict[str, Dict[str, np.ndarray]]]:
     """The pandas-free extraction core: the named ``artifacts`` (names of
     :data:`TABLE_ARTIFACTS` and :data:`SEQUENCE_ARTIFACTS`) of a corpus given
@@ -182,10 +188,18 @@ def extract_tables(
     The Wav2Vec2 tables are the mean frames of the sequences, taken from
     ``sequences`` (by artifact name) where given, else extracted. Returns
     ({artifact: FeatureTable}, {artifact: {filename: (T, H) sequence}}).
+
+    ``mesh`` (``"auto"``, a grid or None) splits MSHDS over the grid's
+    devices (a sub-corpus a device) and openSMILE's sub-batches over its dp
+    rows; a given ``wav2vec2_extractor`` keeps its own ``mesh``. Each
+    extraction stage is timed into a ``ThroughputMeter`` (seconds, audio
+    seconds and files per stage), printed at the end when ``verbose``.
     """
     from .audio.native_io import load_corpus_mono_16k
 
-    device = resolve_device(device)
+    mesh = resolve_mesh(mesh, device)
+    device = resolve_device(device) if mesh is None else mesh.lead
+    meter = ThroughputMeter()
     want = set(artifacts)
     unknown = want - set(TABLE_ARTIFACTS.values()) - set(SEQUENCE_ARTIFACTS.values())
     if unknown:
@@ -206,8 +220,10 @@ def extract_tables(
 
     tables: Dict[str, FeatureTable] = {}
     seqs: Dict[str, Dict[str, np.ndarray]] = dict(sequences or {})
+    def audio_s(w, names):
+        return sum(len(w[n]) for n in names if n in w) / 16000.0
+
     for task in TASKS:
-        start = time.perf_counter()
         if TABLE_ARTIFACTS["mshds", task] in want:
             from .features.mshds import FEATURE_NAMES, extract_mshds_arrays
 
@@ -215,37 +231,36 @@ def extract_tables(
             names = [r["filename"] for r in rows[task]]
             values = np.full((len(names), len(FEATURE_NAMES)), np.nan)
             ok = [i for i, n in enumerate(names) if n in w]
-            if ok:
-                values[ok] = extract_mshds_arrays([w[names[i]] for i in ok], 16000, device=device)
+            with stage_timer(meter, f"mshds/{task}", audio_s(w, names), len(names)):
+                if ok:
+                    values[ok] = extract_mshds_arrays(
+                        [w[names[i]] for i in ok], 16000, device=device,
+                        devices=None if mesh is None else mesh.devices)
             tables[TABLE_ARTIFACTS["mshds", task]] = table(task, names, values, FEATURE_NAMES)
-            _log(verbose, f"[extract] mshds/{task}: {len(names)} files, "
-                          f"{time.perf_counter() - start:.2f} s")
-        start = time.perf_counter()
         if TABLE_ARTIFACTS["opensmile", task] in want:
             from .features.opensmile import OpenSmileConfig, OpenSmileExtractor, feature_columns
 
             cfg = opensmile_config or OpenSmileConfig()
             w = waves(task)
-            names, feats = OpenSmileExtractor(cfg, device=device).extract_arrays(
-                {r["filename"]: w[r["filename"]] for r in rows[task] if r["filename"] in w},
-                verbose=verbose)
+            named = {r["filename"]: w[r["filename"]] for r in rows[task] if r["filename"] in w}
+            with stage_timer(meter, f"opensmile/{task}", audio_s(w, named), len(named)):
+                names, feats = OpenSmileExtractor(cfg, device=device).extract_arrays(
+                    named, verbose=verbose, mesh=mesh)
             tables[TABLE_ARTIFACTS["opensmile", task]] = table(
                 task, names, feats.astype(np.float64), feature_columns(cfg.reference_compat))
-            _log(verbose, f"[extract] opensmile/{task}: {len(names)} files, "
-                          f"{time.perf_counter() - start:.2f} s")
-        start = time.perf_counter()
         seq_name = SEQUENCE_ARTIFACTS[task]
         if (seq_name in want or TABLE_ARTIFACTS["wav2vec2", task] in want) and seq_name not in seqs:
             if wav2vec2_extractor is None:
                 raise ValueError("the Wav2Vec2 artifacts need a wav2vec2_extractor")
             w = waves(task)
-            seqs[seq_name] = wav2vec2_extractor.extract_sequences(
-                {r["filename"]: w[r["filename"]] for r in rows[task] if r["filename"] in w},
-                verbose=verbose) if rows[task] else {}
-            _log(verbose, f"[extract] wav2vec2/{task}: {len(seqs[seq_name])} sequences, "
-                          f"{time.perf_counter() - start:.2f} s")
+            named = {r["filename"]: w[r["filename"]] for r in rows[task] if r["filename"] in w}
+            with stage_timer(meter, f"wav2vec2/{task}", audio_s(w, named), len(named)):
+                seqs[seq_name] = wav2vec2_extractor.extract_sequences(
+                    named, verbose=verbose) if rows[task] else {}
         if TABLE_ARTIFACTS["wav2vec2", task] in want:
             tables[TABLE_ARTIFACTS["wav2vec2", task]] = table(task, *_mean_pool(seqs[seq_name]))
+    if verbose and meter.stages:
+        print("extraction throughput:\n" + meter.report())
     return tables, {k: v for k, v in seqs.items() if k in want}
 
 
@@ -258,6 +273,7 @@ def extract_all_features(
     opensmile_config=None,
     verbose: bool = True,
     device: DeviceLike = "cuda",
+    mesh: MeshLike = "auto",
 ) -> Dict[str, str]:
     """Extract every feature set for the reading and interview tasks.
 
@@ -265,15 +281,18 @@ def extract_all_features(
     ``skip_existing`` (the reference's idempotency contract, nb01 cell 8).
     With "wav2vec2" in ``features`` and no extractor, this fails before any
     extraction: ``Wav2Vec2Extractor`` refuses to run on random weights.
+    ``mesh="auto"`` splits every extractor over the CUDA devices when there
+    are several (:func:`extract_tables`); a grid or None is taken as given.
     """
     features = list(features)
+    mesh = resolve_mesh(mesh, device)
     if "wav2vec2" in features and wav2vec2_extractor is None:
         from .features.wav2vec2 import Wav2Vec2Extractor
 
         # fail fast: the guard would otherwise fire only after the MSHDS and
         # openSMILE stages spent minutes extracting
-        wav2vec2_extractor = Wav2Vec2Extractor(device=device)
-    device = resolve_device(device)
+        wav2vec2_extractor = Wav2Vec2Extractor(device=device, mesh=mesh)
+    device = resolve_device(device) if mesh is None else mesh.lead
 
     os.makedirs(out_dir, exist_ok=True)
     reading_rows, interview_rows = load_androids_rows(corpus_dir, verbose=verbose)
@@ -292,7 +311,7 @@ def extract_all_features(
     tables, seqs = extract_tables(
         reading_rows, interview_rows, missing, wav2vec2_extractor=wav2vec2_extractor,
         opensmile_config=opensmile_config, sequences=cached_seqs, verbose=verbose,
-        device=device,
+        device=device, mesh=mesh,
     )
     for name, tab in tables.items():
         tab.frame().to_csv(paths[name], index=False)
@@ -575,6 +594,7 @@ def cnn_lstm_experiments(
     search_space: Optional[Mapping[str, tuple]] = None,
     frame: Callable = _rows,
     device: DeviceLike = "cuda",
+    mesh: MeshLike = "auto",
 ) -> Dict[str, dict]:
     """The pandas-free core of :func:`run_cnn_lstm_experiments`: per data
     type the nested engine (``tuned_<kind>``), the standard engine with the
@@ -582,11 +602,14 @@ def cnn_lstm_experiments(
     ``out_dir`` and, with ``models_dir``, the final model. ``meta`` rows
     give each participant's ``label``; ``frame`` builds the result tables
     (the rows themselves by default). The fold counts and ``inner_epochs``
-    exist to cut the depth of a run."""
+    exist to cut the depth of a run. ``mesh`` (``"auto"``, a grid or None)
+    splits the nested searches' trial lanes over the grid's dp rows, with
+    the corpus on every device of it; the rest runs on its lead device."""
     from .eval.dl_cv import _as_device_corpus, nested_cv, standard_kfold_cv
     from .train.checkpoints import load_results_pickle, save_results_pickle
 
-    device = resolve_device(device)
+    mesh = resolve_mesh(mesh, device)
+    device = resolve_device(device) if mesh is None else mesh.lead
     os.makedirs(out_dir, exist_ok=True)
     label = {m["unique_participant_id"]: int(m["label"] == "Patient") for m in meta}
     results: Dict[str, dict] = {}
@@ -595,7 +618,7 @@ def cnn_lstm_experiments(
         y = np.asarray([label[p] for p in pids])
         # one upload per data type, shared by the nested search, the
         # standard K-fold and the final model
-        X = _as_device_corpus([np.asarray(seqs[p], np.float32) for p in pids], device)
+        X = _as_device_corpus([np.asarray(seqs[p], np.float32) for p in pids], device, mesh)
 
         tuned_path = os.path.join(out_dir, f"results_wav2vec2_cnn_lstm_tuned_{kind}.pkl")
         if skip_existing and os.path.exists(tuned_path):
@@ -605,7 +628,7 @@ def cnn_lstm_experiments(
                 X, y, n_splits_outer=n_splits_outer, n_splits_inner=n_splits_inner,
                 n_trials=n_trials, epochs=nested_epochs, patience=nested_patience,
                 batch_size=batch_size, inner_epochs=inner_epochs, search_space=search_space,
-                verbose=verbose, trial_batch=trial_batch, device=device,
+                verbose=verbose, trial_batch=trial_batch, device=device, mesh=mesh,
             )
             save_results_pickle(tuned_path, frame(rows), preds, weights)
             results[f"tuned_{kind}"] = {"results_df": frame(rows), "predictions": preds,
@@ -646,9 +669,11 @@ def run_cnn_lstm_experiments(
     verbose: bool = True,
     trial_batch: int = 8,
     device: DeviceLike = "cuda",
+    mesh: MeshLike = "auto",
 ) -> Dict[str, dict]:
     """The 6 CNN-LSTM experiments (3 data types × tuned/standard) with result
     pickles and final tuned checkpoints (nb03 cells 3-7), DataFrame results.
+    ``mesh`` as in :func:`cnn_lstm_experiments`.
 
     The TPE searches run in ask-K rounds (``trial_batch=8``: K candidates of
     one architecture trained together as lanes), a schedule that differs
@@ -657,12 +682,14 @@ def run_cnn_lstm_experiments(
     the reference schedule."""
     import pandas as pd
 
-    resolve_device(device)
+    mesh = resolve_mesh(mesh, device)
+    if mesh is None:
+        resolve_device(device)
     sets, meta = build_sequence_sets(processed_dir, corpus_dir, verbose=verbose)
     return cnn_lstm_experiments(
         sets, meta.to_dict("records"), out_dir, models_dir=models_dir, n_trials=n_trials,
         nested_epochs=nested_epochs, nested_patience=nested_patience,
         standard_epochs=standard_epochs, standard_patience=standard_patience,
         batch_size=batch_size, skip_existing=skip_existing, verbose=verbose,
-        trial_batch=trial_batch, frame=pd.DataFrame, device=device,
+        trial_batch=trial_batch, frame=pd.DataFrame, device=device, mesh=mesh,
     )

@@ -33,7 +33,7 @@ from __future__ import annotations
 import math
 import os
 import struct
-from typing import Dict, List, Mapping, Optional
+from typing import Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
 
@@ -44,6 +44,7 @@ from ..ops.framing import collect, corpus_buffer, resample_buffer
 from ..ops.harmonicity import harmonicity_cc_batch
 from ..ops.intensity import IntensityContour, intensity_contour_batch
 from ..ops.ltas import ltas_pitch_corrected_batch
+from ..parallel.mesh import in_threads
 from ..ops.pitch import (
     PitchParams,
     PitchTrack,
@@ -344,11 +345,37 @@ def _extract_corpus(xs: "List[np.ndarray]", sr: float, verbose: bool = True,
     return rows
 
 
-def extract_mshds_arrays(xs, sr: float = 16000, device: DeviceLike = "cuda") -> np.ndarray:
+def _extract_on(xs: "List[np.ndarray]", sr: float, verbose: bool, device: DeviceLike,
+                devices: Optional[Sequence[DeviceLike]]) -> "List[Dict[str, float]]":
+    """:func:`_extract_corpus` of ``xs``; with two or more ``devices``, the
+    files go round-robin into one sub-corpus a device (JAX ``:698-712``),
+    each run on its device from its own host thread, and the rows come back
+    in ``xs``'s order. A sub-corpus is its own corpus buffer and its own
+    levels, so a row equals the single-device row where the per-file
+    programs agree; the choice of pulse march counts the sub-corpus's
+    voiced seconds (:data:`DEVICE_MARCH_MIN_VOICED_S`), as JAX's counts its
+    partition's."""
+    if devices is None or len(devices) < 2 or len(xs) < 2:
+        return _extract_corpus(xs, sr, verbose=verbose,
+                               device=device if not devices else devices[0])
+    n_groups = min(len(devices), len(xs))
+    group_idx = [list(range(g, len(xs), n_groups)) for g in range(n_groups)]
+    parts = in_threads(lambda g: _extract_corpus([xs[i] for i in group_idx[g]], sr,
+                                                 verbose=False, device=devices[g]), n_groups)
+    rows: "List[Optional[Dict[str, float]]]" = [None] * len(xs)
+    for idx, part in zip(group_idx, parts):
+        for i, r in zip(idx, part):
+            rows[i] = r
+    return rows
+
+
+def extract_mshds_arrays(xs, sr: float = 16000, device: DeviceLike = "cuda",
+                         devices: Optional[Sequence[DeviceLike]] = None) -> np.ndarray:
     """The pandas-free core: (N, 25) float64 features of the waveforms
     ``xs``, columns in :data:`FEATURE_NAMES` order, NaN where a feature
-    could not be computed."""
-    rows = _extract_corpus(list(xs), sr, verbose=False, device=device)
+    could not be computed. ``devices`` (two or more) splits the corpus over
+    them (:func:`_extract_on`)."""
+    rows = _extract_on(list(xs), sr, False, device, devices)
     return np.asarray([[r[k] for k in FEATURE_NAMES] for r in rows],
                       np.float64).reshape(len(rows), len(FEATURE_NAMES))
 
@@ -395,14 +422,17 @@ def extract_mshds_features(input_df, audio_file_column: str = "filepath", verbos
 
 
 def extract_mshds_batch(waveforms: Mapping[str, np.ndarray], sr: float = 16000,
-                        verbose: bool = True, device: DeviceLike = "cuda"):
+                        verbose: bool = True, device: DeviceLike = "cuda",
+                        devices: Optional[Sequence[DeviceLike]] = None):
     """Corpus-batched MSHDS over decoded waveforms ({filename: waveform}) →
-    DataFrame of 'filename' and the 25 features, in the mapping's order."""
+    DataFrame of 'filename' and the 25 features, in the mapping's order.
+    ``devices`` (two or more) partitions the corpus over them, one
+    sub-corpus a device (:func:`_extract_on`)."""
     import pandas as pd
 
     names = list(waveforms.keys())
     if not names:
         return pd.DataFrame(columns=["filename"] + FEATURE_NAMES)
-    feats = _extract_corpus([waveforms[k] for k in names], sr, verbose=verbose, device=device)
+    feats = _extract_on([waveforms[k] for k in names], sr, verbose, device, devices)
     return pd.DataFrame([{"filename": name, **feats[i]} for i, name in enumerate(names)],
                         columns=["filename"] + FEATURE_NAMES)

@@ -30,6 +30,8 @@ front doors import it when called, over the numpy core
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import os
 from dataclasses import dataclass
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple
@@ -58,6 +60,7 @@ from ..ops.functionals import (
     smooth_sma_masked,
 )
 from ..ops.framing import Deferred, queue_fetch, upload, upload_pcm_f32
+from ..parallel.mesh import DeviceGrid
 from ..ops.jitter import mark_periods_batch, periods_to_llds_batch
 from ..ops.lld_spectral import (
     SPECTRAL_NAMES,
@@ -204,15 +207,18 @@ class OpenSmileExtractor:
             stack[i, : len(x)] = x
         return stack
 
-    def _dispatch(self, bucket: int, waves: Sequence[np.ndarray]) -> Deferred:
-        """Queue one sub-batch of a bucket through every stage: a Deferred
-        of its (f_sma, f_de), each (B, 12, 38), whose copies to the host are
+    def _dispatch(self, bucket: int, waves: Sequence[np.ndarray],
+                  device: Optional[torch.device] = None) -> Deferred:
+        """Queue one sub-batch of a bucket through every stage on ``device``
+        (the extractor's by default), on its current stream: a Deferred of
+        its (f_sma, f_de), each (B, 12, 38), whose copies to the host are
         queued behind it."""
+        dev = self.device if device is None else device
         cfg = self.config.frontend
         nts = [num_frames(len(x), cfg.frame_len, cfg.hop) for x in waves]
-        x = upload_pcm_f32(self._stack(bucket, waves), self.device)
+        x = upload_pcm_f32(self._stack(bucket, waves), dev)
         lld = self._llds(x, [len(w) for w in waves], nts)
-        lengths = upload(np.asarray(nts, np.int64), self.device)
+        lengths = upload(np.asarray(nts, np.int64), dev)
         return queue_fetch(self.summary_stage(lld, lengths), tuple)
 
     # ---- public API ----------------------------------------------------------
@@ -250,56 +256,83 @@ class OpenSmileExtractor:
         f_sma, f_de = self.summary_stage(torch.from_numpy(lld_pad).to(self.device), n_true)
         return _functional_vec(f_sma.cpu().numpy(), f_de.cpu().numpy())
 
-    def extract_arrays(self, waveforms: Mapping[str, np.ndarray],
-                       verbose: bool = True) -> Tuple[List[str], np.ndarray]:
+    def extract_arrays(self, waveforms: Mapping[str, np.ndarray], verbose: bool = True,
+                       mesh: Optional[DeviceGrid] = None) -> Tuple[List[str], np.ndarray]:
         """Batched extraction, the numpy core: files grouped by length bucket,
         each group split into sub-batches of ``pipeline_rows`` stacked files,
         up to ``_MAX_INFLIGHT`` sub-batch chains queued at a time and read in
         order. Returns (names, features (N, 912) float32; 911 columns with
         ``reference_compat``), rows in bucket order. A clip shorter than one
-        analysis frame is dropped with a logged error."""
+        analysis frame is dropped with a logged error.
+
+        With ``mesh``, a bucket's sub-batches are dealt in turn to the dp
+        rows' lead devices, each running its chains on a CUDA stream of its
+        own with up to ``_MAX_INFLIGHT`` queued there; the rows come back in
+        the single-device order. Every sub-batch holds the files it holds
+        without a mesh, so each row equals the single-device row bit for bit
+        (the JAX package pads a sharded stack to a dp multiple with silent
+        rows; nothing is padded here)."""
         groups: Dict[int, List[Tuple[str, np.ndarray]]] = {}
         for name, x in self._usable(waveforms, verbose):
             groups.setdefault(self._bucket_of(len(x)), []).append((name, x))
 
         rows = self.pipeline_rows if self.pipeline_rows > 0 else 1 << 30
+        devices = [self.device] if mesh is None else mesh.row_leads()
+        streams = [torch.cuda.Stream(d) if d.type == "cuda" and mesh is not None else None
+                   for d in devices]
         names: List[str] = []
         vecs: List[np.ndarray] = []
+        queued = [0] * len(devices)
+        pending: collections.deque = collections.deque()
 
-        def read(part, chain: Deferred) -> None:
+        def read() -> None:
+            part, slot, chain = pending.popleft()
+            queued[slot] -= 1
             f_sma, f_de = chain.result()
             for i, (name, _) in enumerate(part):
                 names.append(name)
                 vecs.append(_functional_vec(f_sma[i], f_de[i]))
 
-        pending: List[Tuple[List[Tuple[str, np.ndarray]], Deferred]] = []
+        n_sub = 0
         for bucket, items in sorted(groups.items()):
             for s in range(0, len(items), rows):
                 part = items[s : s + rows]
-                pending.append((part, self._dispatch(bucket, [x for _, x in part])))
-                if len(pending) >= _MAX_INFLIGHT:
-                    read(*pending.pop(0))
-        for entry in pending:
-            read(*entry)
+                slot = n_sub % len(devices)
+                n_sub += 1
+                args = (bucket, [x for _, x in part])
+                with _on_stream(streams[slot]):
+                    chain = self._dispatch(*args) if mesh is None else \
+                        self._dispatch(*args, devices[slot])
+                pending.append((part, slot, chain))
+                queued[slot] += 1
+                while queued[slot] >= _MAX_INFLIGHT:  # oldest first, whichever device
+                    read()
+        while pending:
+            read()
         n_cols = len(feature_columns(self.config.reference_compat))
         feats = np.zeros((0, n_cols), np.float32)
         if vecs:
             feats = np.stack(vecs).astype(np.float32)[:, -n_cols:]
         return names, feats
 
-    def extract_batch(self, waveforms: Mapping[str, np.ndarray], verbose: bool = True):
+    def extract_batch(self, waveforms: Mapping[str, np.ndarray], verbose: bool = True,
+                      mesh: Optional[DeviceGrid] = None):
         """{filename: waveform} → DataFrame[feature columns + 'filename'],
         batched by length bucket (see :meth:`extract_arrays`)."""
-        names, feats = self.extract_arrays(waveforms, verbose=verbose)
+        names, feats = self.extract_arrays(waveforms, verbose=verbose, mesh=mesh)
         return _frame(names, feats, self.config.reference_compat)
 
     def extract(self, waveforms: Mapping[str, np.ndarray], verbose: bool = True,
-                batched: bool = True):
+                batched: bool = True, mesh: Optional[DeviceGrid] = None):
         """{filename: waveform} → DataFrame[feature columns + 'filename'];
         ``batched=False`` extracts one file at a time, dropping a file that
-        is too short with a logged error."""
+        is too short with a logged error (a ``mesh`` is for the batched
+        path and raises there)."""
         if batched:
-            return self.extract_batch(waveforms, verbose=verbose)
+            return self.extract_batch(waveforms, verbose=verbose, mesh=mesh)
+        if mesh is not None:
+            raise ValueError("mesh= splits the batched extraction; batched=False runs one file "
+                             "at a time on the extractor's device")
         n_cols = len(feature_columns(self.config.reference_compat))
         names, vecs = [], []
         for name, x in self._usable(waveforms, verbose):
@@ -307,6 +340,11 @@ class OpenSmileExtractor:
             vecs.append(self.extract_single(x)[-n_cols:])
         feats = np.stack(vecs).astype(np.float32) if vecs else np.zeros((0, n_cols), np.float32)
         return _frame(names, feats, self.config.reference_compat)
+
+
+def _on_stream(stream):
+    """``torch.cuda.stream(stream)``, or nothing for None."""
+    return torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext()
 
 
 def _frame(names: List[str], feats: np.ndarray, reference_compat: bool):
@@ -329,18 +367,22 @@ def extract_opensmile_features(
     waveforms: Optional[Mapping[str, np.ndarray]] = None,
     extractor: Optional[OpenSmileExtractor] = None,
     device: DeviceLike = "cuda",
+    mesh: Optional[DeviceGrid] = None,
 ):
     """DataFrame front door with the reference extractor's API shape: one
     row per file, the feature columns and 'filename'. A file that cannot be
     read, or whose basename repeats an earlier one, is dropped with a logged
-    error. ``extractor`` defaults to a new one for ``config`` on ``device``."""
+    error. ``extractor`` defaults to a new one for ``config`` on ``device``
+    (the grid's lead device with ``mesh``, over which the batches split)."""
     import struct
 
     import pandas as pd
 
     from ..audio.io import load_mono_16k
 
-    ex = extractor if extractor is not None else OpenSmileExtractor(config, device=device)
+    if extractor is None:
+        extractor = OpenSmileExtractor(config, device=device if mesh is None else mesh.lead)
+    ex = extractor
     if input_df.empty:
         return pd.DataFrame(columns=["filename"] + feature_columns(config.reference_compat))
 
@@ -360,4 +402,4 @@ def extract_opensmile_features(
         except (OSError, ValueError, struct.error) as e:
             if verbose:
                 print(f"ERROR: could not read '{name}': {e}")
-    return ex.extract(wavs, verbose=verbose)
+    return ex.extract(wavs, verbose=verbose, mesh=mesh)

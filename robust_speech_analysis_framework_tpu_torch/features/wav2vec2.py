@@ -49,7 +49,9 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from ..models.init import init_weights_
-from ..models.wav2vec2 import Wav2Vec2Config, Wav2Vec2Model, port_hf_state_dict
+from ..models.wav2vec2 import (ShardedWav2Vec2, Wav2Vec2Config, Wav2Vec2Model,
+                               port_hf_state_dict)
+from ..parallel.mesh import DeviceGrid
 from ..train.loops import _aligned_length
 
 SAMPLE_RATE = 16000
@@ -159,6 +161,14 @@ class Wav2Vec2Extractor:
     sets the download format of :meth:`extract_sequences` (see
     :func:`quantize_sequences`); sequences come back as float32 whatever it
     is, and embeddings always cross in float32.
+
+    ``mesh`` (a :class:`..parallel.mesh.DeviceGrid`) splits every chunk
+    batch over its dp rows and the encoder's weights over its mp devices
+    (:class:`..models.wav2vec2.ShardedWav2Vec2`); ``batch_size`` must divide
+    by dp. The batches are uploaded to, and every result gathered on, the
+    grid's lead device, which is then the extractor's ``device``: each
+    transfer dtype, the bf16 preset, the embeddings and the resident buffer
+    of :meth:`extract_sequences_resident` go through the split the same way.
     """
 
     def __init__(
@@ -175,8 +185,12 @@ class Wav2Vec2Extractor:
         sequence_transfer_dtype=np.float32,
         upload_dtype=np.float32,
         device: DeviceLike = "cuda",
+        mesh: Optional[DeviceGrid] = None,
     ):
-        self.device = resolve_device(device)
+        if mesh is not None and batch_size % mesh.dp != 0:
+            raise ValueError(f"batch_size {batch_size} not divisible by dp={mesh.dp}")
+        self.mesh = mesh
+        self.device = resolve_device(device) if mesh is None else mesh.lead
         if compute_dtype is not None and compute_dtype != config.compute_dtype:
             config = dataclasses.replace(config, compute_dtype=compute_dtype)
         self.config = config
@@ -224,6 +238,7 @@ class Wav2Vec2Extractor:
         else:
             model.load_state_dict(params)
         self.model = model.to(self.device).eval()
+        self._sharded = None if mesh is None else ShardedWav2Vec2(self.model, mesh)
 
     @classmethod
     def from_hf_checkpoint(cls, checkpoint_path_or_name: str, **kwargs) -> "Wav2Vec2Extractor":
@@ -299,6 +314,11 @@ class Wav2Vec2Extractor:
         and a scratch row so that no start index is clamped, and trims them.
         Here only valid frames are written (:func:`_copy_frames`), so the
         writes are disjoint and need neither.
+
+        With a ``mesh`` the encoder runs split over the grid and the buffer
+        lies on its lead device (the JAX package ignores its mesh here); a
+        multi-device CV run over it copies it to each device of its grid
+        (``eval.dl_cv._as_device_corpus``).
         """
         names, chunk_refs, chunk_data = self._gather_chunks(waveforms, verbose)
         if not names:
@@ -414,6 +434,8 @@ class Wav2Vec2Extractor:
         if wav.dtype == torch.int16:
             wav = wav.to(torch.float32) * (1.0 / 32768.0)
         with torch.no_grad():
+            if self._sharded is not None:
+                return self._sharded(wav, lengths)
             return self.model(wav, lengths)
 
     def _run_batches(

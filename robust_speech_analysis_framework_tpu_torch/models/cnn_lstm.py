@@ -74,14 +74,53 @@ def _mask_pad(h: torch.Tensor, lengths: Optional[torch.Tensor]) -> torch.Tensor:
     return h.masked_fill(t[None, :, None] >= lengths[:, None, None], 0.0)
 
 
+class SplitDraws:
+    """Dropout uniforms of a batch split over devices (the sharded train
+    step, ``train.loops.sharded_train_step``): passed as a forward's
+    ``generator``, it makes each dropout site draw at the WHOLE batch's
+    shape on ``shared.generator``, in site order, and hand this shard its
+    rows. So a shard's masks are the rows of the single-device masks.
+
+    ``shared`` holds the generator, a lock and the sites drawn so far (a
+    list of whole-batch uniforms); ``offset``/``batch`` place this shard in
+    the whole batch of ``total`` rows."""
+
+    def __init__(self, shared, offset: int, total: int):
+        self.shared = shared
+        self.offset = offset
+        self.total = total
+        self._shapes: list = []  # this shard's whole-batch shape at each site so far
+
+    def uniform(self, x: torch.Tensor) -> torch.Tensor:
+        """This shard's rows of the next site's whole-batch uniforms."""
+        self._shapes.append((self.total,) + tuple(x.shape[1:]))
+        site = len(self._shapes) - 1
+        sh = self.shared
+        with sh.lock:
+            # every earlier site was passed by this shard, so its shape is
+            # known here: sites are drawn strictly in order whichever shard
+            # gets there first
+            while len(sh.draws) <= site:
+                gen = sh.generator
+                sh.draws.append(torch.rand(self._shapes[len(sh.draws)], generator=gen,
+                                           device=gen.device, dtype=x.dtype))
+            u = sh.draws[site]
+        return u[self.offset : self.offset + x.shape[0]].to(x.device)
+
+
 def dropout(x: torch.Tensor, rate: float,
             generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """Keep each element with probability ``1 - rate``, scaled by
-    ``1 / max(1 - rate, 1e-6)`` (the JAX model's ``RateDropout``)."""
+    ``1 / max(1 - rate, 1e-6)`` (the JAX model's ``RateDropout``).
+    ``generator`` may be a :class:`SplitDraws` (a shard of a batch split
+    over devices)."""
     if rate == 0.0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device, dtype=x.dtype) >= rate
-    return torch.where(keep, x / max(1.0 - rate, 1e-6), 0.0)
+    if isinstance(generator, SplitDraws):
+        u = generator.uniform(x)
+    else:
+        u = torch.rand(x.shape, generator=generator, device=x.device, dtype=x.dtype)
+    return torch.where(u >= rate, x / max(1.0 - rate, 1e-6), 0.0)
 
 
 class BatchNorm(nn.BatchNorm1d):
@@ -94,17 +133,26 @@ class BatchNorm(nn.BatchNorm1d):
     variance, unless ``update_running_stats`` is False (a recomputed forward
     under rematerialisation must not count its batch twice). The state-dict
     names are ``nn.BatchNorm1d``'s.
+
+    ``stats_sync``, when set, takes this shard's input and returns the
+    (mean, biased variance) of the WHOLE batch: a batch split over devices
+    (``train.loops.sharded_train_step``) normalises, and moves its running
+    statistics, as the single-device batch does.
     """
 
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=1e-5, momentum=0.01)
         self.update_running_stats = True
+        self.stats_sync: Optional[Callable[[torch.Tensor], tuple]] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
-        mean = x.mean(dim=(0, 2))
-        var = torch.clamp((x * x).mean(dim=(0, 2)) - mean * mean, min=0.0)
+        if self.stats_sync is not None:
+            mean, var = self.stats_sync(x)
+        else:
+            mean = x.mean(dim=(0, 2))
+            var = torch.clamp((x * x).mean(dim=(0, 2)) - mean * mean, min=0.0)
         if self.update_running_stats:
             m = self.momentum
             with torch.no_grad():

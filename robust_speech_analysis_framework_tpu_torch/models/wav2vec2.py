@@ -27,7 +27,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Any, Dict, Mapping, Optional, Tuple
+from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -205,22 +205,37 @@ class EncoderLayer(nn.Module):
         self.ff_norm = nn.LayerNorm(d, eps=config.layer_norm_eps)
 
     def forward(self, x: torch.Tensor, attn_bias: Optional[torch.Tensor]) -> torch.Tensor:
-        b, t, d = x.shape
-        heads, cdt = self.num_heads, self.cdtype
-        head_dim = d // heads
-        split = lambda y: y.reshape(b, t, heads, head_dim).transpose(1, 2)  # noqa: E731
-        q = split(_dense(self.q, x, cdt) * self.q_scale)
-        k = split(_dense(self.k, x, cdt))
-        v = split(_dense(self.v, x, cdt))
-        # scores and softmax in float32 whatever the compute dtype
-        scores = torch.matmul(q, k.transpose(-1, -2)).float()  # (B, heads, T, T)
-        if attn_bias is not None:
-            scores = scores + attn_bias
-        probs = torch.softmax(scores, dim=-1)
-        ctx = torch.matmul(probs.to(cdt), v).transpose(1, 2).reshape(b, t, d)
+        cdt = self.cdtype
+        ctx = _attention(x, (self.q.weight, self.q.bias), (self.k.weight, self.k.bias),
+                         (self.v.weight, self.v.bias), self.num_heads, self.q_scale, cdt,
+                         attn_bias)
         x = self.attn_norm(x + _dense(self.out, ctx, cdt).float())
         ff = _dense(self.ff2, F.gelu(_dense(self.ff1, x, cdt)), cdt).float()
         return self.ff_norm(x + ff)
+
+
+def _linear(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
+            cdt: torch.dtype) -> torch.Tensor:
+    """:func:`_dense` over explicit tensors."""
+    return F.linear(x.to(cdt), weight.to(cdt), None if bias is None else bias.to(cdt))
+
+
+def _attention(x: torch.Tensor, q: tuple, k: tuple, v: tuple, heads: int, q_scale: float,
+               cdt: torch.dtype, attn_bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """Multi-head attention's context (B, T, heads · head_dim) in ``cdt``,
+    before the output projection; ``q``/``k``/``v`` are (weight, bias) of
+    ``heads`` heads (all of a layer's, or an mp slice of them)."""
+    b, t, _ = x.shape
+    split = lambda y: y.reshape(b, t, heads, -1).transpose(1, 2)  # noqa: E731
+    qh = split(_linear(x, *q, cdt) * q_scale)
+    kh = split(_linear(x, *k, cdt))
+    vh = split(_linear(x, *v, cdt))
+    # scores and softmax in float32 whatever the compute dtype
+    scores = torch.matmul(qh, kh.transpose(-1, -2)).float()  # (B, heads, T, T)
+    if attn_bias is not None:
+        scores = scores + attn_bias
+    probs = torch.softmax(scores, dim=-1)
+    return torch.matmul(probs.to(cdt), vh).transpose(1, 2).reshape(b, t, -1)
 
 
 class Wav2Vec2Model(nn.Module):
@@ -258,6 +273,174 @@ class Wav2Vec2Model(nn.Module):
         for i in range(self.config.num_layers):
             h = getattr(self, f"layer_{i}")(h, attn_bias)
         return h, out_lengths
+
+
+# ---------------------------------------------------------------------------
+# Split over a (dp, mp) device grid
+# ---------------------------------------------------------------------------
+
+
+class ShardedWav2Vec2:
+    """A :class:`Wav2Vec2Model` laid over a (dp, mp) grid (the JAX
+    extractor's ``mesh=``, ``features/wav2vec2.py:222-257``).
+
+    Every dp row holds the weights, the rule-matched ones
+    (``parallel.sharding``) split over its mp devices, the others copied on
+    each; a batch splits over the rows (``batch_sharding``). In a row the
+    products are Megatron's: the feature encoder's convs, the projection and
+    the positional conv compute their output channels' slice on each device
+    and gather them; ``q``/``k``/``v``/``ff1`` are column-parallel (a
+    device's heads and hidden units, with their bias slices), ``out``/``ff2``
+    row-parallel, their partial products summed across the row on its lead
+    device, where the norms and the residual adds run. A split that does
+    not fall on whole heads or conv groups gathers those weights whole on
+    the lead. With mp = 1 each row runs the model whole on its device.
+    Called as the model is: ``(wav, lengths)`` on any device → hidden
+    states and frame counts on the grid's lead device.
+    """
+
+    def __init__(self, model: Wav2Vec2Model, mesh):
+        from ..parallel.sharding import place_params, shard_params
+
+        params = {n: p.detach() for n, p in model.named_parameters()}
+        self.model = model
+        self.mesh = mesh
+        self.config = model.config
+        self.spec = shard_params(params, mesh)
+        self.slices = place_params(params, mesh)
+
+    def __call__(self, wav: torch.Tensor, lengths: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        from ..parallel.sharding import batch_sharding
+
+        lead = self.mesh.lead
+        outs = [self._row(r, wav[rows].to(self.mesh.rows[r][0]),
+                          lengths[rows].to(self.mesh.rows[r][0]))
+                for r, rows in enumerate(batch_sharding(self.mesh, wav.shape[0]))]
+        return (torch.cat([h.to(lead) for h, _ in outs]),
+                torch.cat([n.to(lead) for _, n in outs]))
+
+    # --- one dp row ------------------------------------------------------------
+
+    def _whole(self, r: int, name: str) -> torch.Tensor:
+        from ..parallel.sharding import gather
+
+        return gather(self.slices[name][r], self.spec[name], self.mesh.rows[r][0])
+
+    def _part(self, r: int, c: int, name: str, dim: int = 0) -> torch.Tensor:
+        """Parameter ``name``'s mp slice c along ``dim``: the slice held at
+        (r, c), or that share of a replicated copy."""
+        t = self.slices[name][r][c]
+        return t if self.spec[name] is not None else t.chunk(self.mesh.mp, dim)[c]
+
+    def _columns(self, r: int, x: torch.Tensor, weight: str, bias: Optional[str],
+                 fn: Callable, cat_dim: int) -> torch.Tensor:
+        """``fn(x, weight, bias)`` with the weight's output channels split
+        over row r's devices, gathered on its lead along ``cat_dim``."""
+        devs = self.mesh.rows[r]
+        if self.spec[weight] is None:
+            return fn(x, self._whole(r, weight), None if bias is None else self._whole(r, bias))
+        return torch.cat([
+            fn(x.to(dev), self._part(r, c, weight),
+               None if bias is None else self._part(r, c, bias)).to(devs[0])
+            for c, dev in enumerate(devs)], cat_dim)
+
+    def _row(self, r: int, wav: torch.Tensor, lengths: torch.Tensor):
+        if self.mesh.mp == 1:  # nothing split: the model whole on the row's device
+            params = {n: self._whole(r, n) for n in self.slices}
+            return torch.func.functional_call(self.model, params, (wav, lengths))
+        cfg = self.config
+        cdt = cfg.cdtype
+        lead = self.mesh.rows[r][0]
+        w = lambda n: self._whole(r, n)  # noqa: E731
+        h = wav[:, None, :]
+        cur = lengths
+        for i, (k, s) in enumerate(zip(cfg.conv_kernel, cfg.conv_stride)):
+            h = self._columns(r, h, f"feature_encoder.conv_{i}.weight", None,
+                              lambda x, wt, _b, s=s: _conv(x, wt, None, cdt, stride=s), 1)
+            cur = torch.div(cur - k, s, rounding_mode="floor") + 1
+            if i == 0:
+                h = _masked_channel_norm(h.float(), cur, cfg.layer_norm_eps)
+                h = h * w("feature_encoder.gn_scale")[:, None] + w("feature_encoder.gn_bias")[:, None]
+            h = F.gelu(h)
+        feats = h.float().transpose(1, 2)
+        normed = F.layer_norm(feats, (feats.shape[-1],), w("feature_projection.norm.weight"),
+                              w("feature_projection.norm.bias"), cfg.layer_norm_eps)
+        h = self._columns(r, normed, "feature_projection.projection.weight",
+                          "feature_projection.projection.bias",
+                          lambda x, wt, b: _linear(x, wt, b, cdt), 2).float()
+        t = torch.arange(h.shape[1], device=lead)
+        valid = t[None, :] < cur[:, None]
+        h = h.masked_fill(~valid[:, :, None], 0.0)
+        attn_bias = torch.zeros(valid.shape, dtype=h.dtype, device=lead)
+        attn_bias = attn_bias.masked_fill(~valid, -1e30)[:, None, None, :]
+        h = F.layer_norm(h + self._pos_conv(r, h), (h.shape[-1],), w("encoder_norm.weight"),
+                         w("encoder_norm.bias"), cfg.layer_norm_eps)
+        for i in range(cfg.num_layers):
+            h = self._layer(r, f"layer_{i}", h, attn_bias)
+        return h, cur
+
+    def _pos_conv(self, r: int, x: torch.Tensor) -> torch.Tensor:
+        cfg = self.config
+        cdt, groups, pad = cfg.cdtype, cfg.pos_conv_groups, cfg.pos_conv_kernel // 2
+        xt = x.transpose(1, 2)
+        mp = self.mesh.mp
+        if self.spec["pos_conv.conv.weight"] is None or groups % mp:
+            h = _conv(xt, self._whole(r, "pos_conv.conv.weight"), self._whole(r, "pos_conv.conv.bias"),
+                      cdt, padding=pad, groups=groups)
+        else:  # a device's output channels are whole groups: it reads their inputs only
+            devs = self.mesh.rows[r]
+            ins = xt.chunk(mp, 1)
+            h = torch.cat([
+                _conv(ins[c].to(dev), self._part(r, c, "pos_conv.conv.weight"),
+                      self._part(r, c, "pos_conv.conv.bias"), cdt, padding=pad,
+                      groups=groups // mp).to(devs[0])
+                for c, dev in enumerate(devs)], 1)
+        return F.gelu(h.float()[:, :, : x.shape[1]]).transpose(1, 2)
+
+    def _layer(self, r: int, pre: str, x: torch.Tensor,
+               attn_bias: torch.Tensor) -> torch.Tensor:
+        cfg = self.config
+        cdt, heads, mp = cfg.cdtype, cfg.num_heads, self.mesh.mp
+        eps = cfg.layer_norm_eps
+        devs = self.mesh.rows[r]
+        lead = devs[0]
+        layer = getattr(self.model, pre)
+        w = lambda n: self._whole(r, f"{pre}.{n}")  # noqa: E731
+        parallel = lambda *names: all(self.spec[f"{pre}.{n}.weight"] is not None  # noqa: E731
+                                      for n in names)
+
+        def reduce(parts: List[torch.Tensor], bias: torch.Tensor) -> torch.Tensor:
+            out = parts[0].to(lead)
+            for p in parts[1:]:
+                out = out + p.to(lead)
+            return out + bias
+
+        if parallel("q", "k", "v", "out") and heads % mp == 0:
+            qkv = lambda c, n: (self._part(r, c, f"{pre}.{n}.weight"),  # noqa: E731
+                                self._part(r, c, f"{pre}.{n}.bias"))
+            parts = []
+            for c, dev in enumerate(devs):
+                ctx = _attention(x.to(dev), qkv(c, "q"), qkv(c, "k"), qkv(c, "v"), heads // mp,
+                                 layer.q_scale, cdt, attn_bias.to(dev))
+                parts.append(_linear(ctx, self._part(r, c, f"{pre}.out.weight", 1), None,
+                                     cdt).float())
+            attn = reduce(parts, w("out.bias"))
+        else:
+            ctx = _attention(x, (w("q.weight"), w("q.bias")), (w("k.weight"), w("k.bias")),
+                             (w("v.weight"), w("v.bias")), heads, layer.q_scale, cdt, attn_bias)
+            attn = _linear(ctx, w("out.weight"), w("out.bias"), cdt).float()
+        x = F.layer_norm(x + attn, (x.shape[-1],), w("attn_norm.weight"), w("attn_norm.bias"), eps)
+        if parallel("ff1", "ff2"):
+            parts = [_linear(F.gelu(_linear(x.to(dev), self._part(r, c, f"{pre}.ff1.weight"),
+                                            self._part(r, c, f"{pre}.ff1.bias"), cdt)),
+                             self._part(r, c, f"{pre}.ff2.weight", 1), None, cdt).float()
+                     for c, dev in enumerate(devs)]
+            ff = reduce(parts, w("ff2.bias"))
+        else:
+            ff = _linear(F.gelu(_linear(x, w("ff1.weight"), w("ff1.bias"), cdt)),
+                         w("ff2.weight"), w("ff2.bias"), cdt).float()
+        return F.layer_norm(x + ff, (x.shape[-1],), w("ff_norm.weight"), w("ff_norm.bias"), eps)
 
 
 # ---------------------------------------------------------------------------

@@ -42,26 +42,27 @@ def _map_tensors(tree: Any, fn: Callable[[torch.Tensor], Any]) -> Any:
 
 def _stage(tree: Any):
     """(``tree`` with each CUDA tensor's copy into a pinned host buffer
-    queued without blocking, whether any tensor was on the card)."""
-    on_card = []
+    queued without blocking, the CUDA devices those tensors lie on)."""
+    on_card: List[torch.device] = []
 
     def stage(t: torch.Tensor) -> torch.Tensor:
         t = t.detach()
         if t.device.type != "cuda":
             return t
-        on_card.append(t)
+        if t.device not in on_card:
+            on_card.append(t.device)
         return torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t, non_blocking=True)
 
-    return _map_tensors(tree, stage), bool(on_card)
+    return _map_tensors(tree, stage), on_card
 
 
 def _to_host(tree: Any) -> Any:
     """``tree`` with every tensor as a numpy array. CUDA tensors are copied
-    into pinned buffers without blocking, then the device is synchronised
-    once for all of them."""
+    into pinned buffers without blocking, then each device they lie on is
+    synchronised once for all of them."""
     staged, on_card = _stage(tree)
-    if on_card:
-        torch.cuda.synchronize()
+    for dev in on_card:
+        torch.cuda.synchronize(dev)
     return _map_tensors(staged, torch.Tensor.numpy)
 
 
@@ -101,11 +102,14 @@ def queue_fetch(arrays: Any, finalize: Callable[[Any], Any]) -> Deferred:
     staged, on_card = _stage(arrays)
     if not on_card:
         return Deferred(staged, finalize)
-    done = torch.cuda.Event()
-    done.record()
+    done = []
+    for dev in on_card:  # behind the copies on each device's current stream
+        done.append(torch.cuda.Event())
+        done[-1].record(torch.cuda.current_stream(dev))
 
     def after_copies(host):
-        done.synchronize()
+        for event in done:
+            event.synchronize()
         return finalize(host)
 
     return Deferred(staged, after_copies)

@@ -52,15 +52,25 @@ Where it differs from the JAX package, by design:
   here both restore model, optimizer and rate (:func:`_restore`). A restored
   model's outputs are the same either way.
 * ``DeviceCorpus`` and ``ResidentCorpus`` take the ``device`` they upload to
-  (``"cuda"`` unless the caller asks for the CPU) and no ``sharding``: that
-  comes with the multi-device slice.
+  (``"cuda"`` unless the caller asks for the CPU) and no ``sharding``: a
+  multi-device run reads a corpus's device-side copy on each device of its
+  grid (:meth:`DeviceCorpus.on`), made once.
 * Lane-batched trials (:func:`train_trials_device`): the JAX package vmaps
   its fold program over K trials; here :class:`CNNLSTMLanes` stacks the K
   models on a lane axis and one host epoch loop (:func:`_run_epochs_lanes`)
   keeps each lane's books, so every lane step launches K3, K4 and dWh once a
   biLSTM layer for all lanes, at G = 2K. A lane whose patience runs out is
   computed on and restored at the end, as a batched ``while_loop`` freezes
-  it. No ``mesh``/``lane_axis``: that comes with the multi-device slice.
+  it. With ``mesh``, the lanes split into groups, one a device along
+  ``lane_axis``, each driven from its own host thread.
+* Multi-device training runs in one process (the JAX package's one
+  controller), not a process group: :class:`ShardedTrainState` and
+  :func:`sharded_train_step` lay a model over a (dp, mp)
+  :class:`..parallel.mesh.DeviceGrid`, the batch over dp and the
+  rule-matched parameters with their Adam moments over mp, each shard in
+  its own host thread; BatchNorm takes the whole batch's statistics and
+  dropout the whole batch's masks, so the step is the single-device step
+  with its sums in another order.
 """
 
 from __future__ import annotations
@@ -69,6 +79,7 @@ import contextlib
 import copy
 import dataclasses
 import os
+import threading
 from typing import (Any, Callable, Dict, Iterable, Iterator, List, Mapping, Optional,
                     Sequence, Tuple)
 
@@ -81,6 +92,7 @@ from ..device import DeviceLike, fp32_convs, resolve_device
 from ..models.cnn_lstm import CNNLSTM, BatchNorm, CNNLSTMLanes
 from ..models.init import init_training_weights_
 from ..ops.framing import Deferred
+from ..parallel.mesh import DeviceGrid, in_threads
 
 
 @dataclasses.dataclass
@@ -482,7 +494,14 @@ class Trainer:
         """:meth:`eval_logits_deferred` for the lanes of
         :func:`train_trials_device`: every lane scores the same batches (one
         gather or upload a batch, one model call for all lanes); the result
-        is the (K, N, num_classes) logits array."""
+        is the (K, N, num_classes) logits array. Lanes split over devices
+        (:class:`LaneGroups`) are scored each on its group's device, over
+        the corpus's replica there, and come back in lane order."""
+        if isinstance(states, LaneGroups):
+            parts = [t.eval_logits_trials_deferred(st, _on(sequences, t.device), cfg)
+                     for t, st, _ in states.parts]
+            return Deferred([p.arrays for p in parts], lambda host: np.concatenate(
+                [p.finalize(h) for p, h in zip(parts, host)]))
         n = len(sequences)
         groups: List[np.ndarray] = []
         outs: List[torch.Tensor] = []
@@ -617,8 +636,22 @@ class DeviceCorpus:
         if t_pad >= self.x.shape[1]:
             return self
         out = copy.copy(self)
+        out.__dict__.pop("_replicas", None)  # those hold the untrimmed length
         out.x = self.x[:, :t_pad]
         return out
+
+    def on(self, device: DeviceLike) -> "DeviceCorpus":
+        """This corpus on ``device``: itself when it lies there, else a
+        device-side copy, made once and shared by every replica of this
+        corpus (a multi-device run reads it on each device of its grid)."""
+        device = torch.device(device)
+        replicas = self.__dict__.setdefault("_replicas", {self.x.device: self})
+        if device not in replicas:
+            out = copy.copy(self)
+            out.x = self.x.to(device)
+            out.lengths = self.lengths.to(device)
+            replicas[device] = out
+        return replicas[device]
 
     @classmethod
     def from_resident(cls, resident) -> "DeviceCorpus":
@@ -725,6 +758,11 @@ class SeqView:
 
     def subset(self, idx: np.ndarray) -> "SeqView":
         return SeqView(self.corpus, self.idx[np.asarray(idx, np.int64)])
+
+    def on(self, device: DeviceLike) -> "SeqView":
+        """The same rows of the corpus's replica on ``device``
+        (:meth:`DeviceCorpus.on`)."""
+        return SeqView(self.corpus.on(device), self.idx)
 
 
 # --- the device-resident fold ----------------------------------------------------
@@ -1051,7 +1089,9 @@ def train_trials_device(
     cfg: TrainConfig,
     learning_rates: Sequence[float],
     dropout_rates: Sequence[float],
-) -> Tuple[LaneTrainState, Deferred]:
+    mesh: Optional[DeviceGrid] = None,
+    lane_axis: str = "dp",
+) -> Tuple[Any, Deferred]:
     """Train K trials of ONE architecture together, one lane each.
 
     The trials differ only in learning rate and dropout rate. Every lane
@@ -1063,14 +1103,54 @@ def train_trials_device(
     reproduces :func:`train_model` of trial i. Every train step runs the K
     models as one (:class:`CNNLSTMLanes`): K3, K4 and dWh at G = 2K.
 
-    Returns ``(states, histories)``: a :class:`LaneTrainState` and a
-    :class:`Deferred` of each lane's (train_hist, val_hist), already on the
-    host. Compose with :meth:`Trainer.eval_logits_trials_deferred`.
+    With ``mesh`` and K divisible by its ``lane_axis`` size G, the lanes
+    split into G contiguous groups, one a device along that axis (the row
+    leads for ``"dp"``): each group is its own :class:`CNNLSTMLanes` and
+    :class:`LaneAdam` on its device, driven from its own host thread, with
+    its own generator seeded and stepped as the single-device one (a
+    lane's draws do not depend on the lane count), over the corpus's
+    replica on that device. When K does not divide, the lanes are
+    replicated, as the JAX package's sharding replicates them: the one
+    process computes them once, on the grid's lead device.
+
+    Returns ``(states, histories)``: a :class:`LaneTrainState` (a
+    :class:`LaneGroups` when split) and a :class:`Deferred` of each lane's
+    (train_hist, val_hist) in lane order, already on the host. Compose with
+    :meth:`Trainer.eval_logits_trials_deferred`.
     """
     if len(learning_rates) != len(dropout_rates):
         raise ValueError("learning_rates and dropout_rates must align")
     if cfg.dropout_rate is None:
         raise ValueError("train_trials_device requires cfg.dropout_rate set")
+    if mesh is not None:
+        k = len(learning_rates)
+        devices = _lane_devices(mesh, lane_axis)
+        if k % len(devices):
+            devices = [mesh.lead]
+        per = k // len(devices)
+        groups = [list(range(g * per, (g + 1) * per)) for g in range(len(devices))]
+
+        def run(g: int):
+            t = trainer if trainer.device == devices[g] else Trainer(
+                trainer.model, trainer.adam_eps, device=devices[g])
+            return (t, *_train_lanes(t, _on(train_sequences, t.device), train_labels,
+                                     _on(val_sequences, t.device), val_labels, cfg,
+                                     [learning_rates[i] for i in groups[g]],
+                                     [dropout_rates[i] for i in groups[g]]))
+
+        parts = in_threads(run, len(groups))
+        states = LaneGroups([(t, st, idx) for (t, st, _), idx in zip(parts, groups)])
+        return states, Deferred.ready([h for _, _, hists in parts for h in hists])
+    state, hists = _train_lanes(trainer, train_sequences, train_labels, val_sequences,
+                                val_labels, cfg, learning_rates, dropout_rates)
+    return state, Deferred.ready(hists)
+
+
+def _train_lanes(trainer: Trainer, train_sequences, train_labels, val_sequences, val_labels,
+                 cfg: TrainConfig, learning_rates: Sequence[float],
+                 dropout_rates: Sequence[float]
+                 ) -> Tuple[LaneTrainState, List[Tuple[List[float], List[float]]]]:
+    """The lanes of :func:`train_trials_device` on ``trainer``'s device."""
     lrs = [float(v) for v in learning_rates]
     state = LaneTrainState.replicate(trainer.init_state(cfg.seed, cfg.learning_rate),
                                      trainer._tensor(np.asarray(lrs), torch.float64))
@@ -1083,7 +1163,43 @@ def train_trials_device(
         lambda epoch: _gathered(x_tr, len_tr, y_tr, (*full[epoch], rem[epoch])),
         lambda: _gathered(x_va, len_va, y_va, (*va_full, va_rem)),
     )
-    return state, Deferred.ready(hists)
+    return state, hists
+
+
+def _lane_devices(mesh: DeviceGrid, lane_axis: str) -> List[torch.device]:
+    """The devices along ``lane_axis`` of ``mesh``: each dp row's lead, or
+    the mp devices of row 0."""
+    if lane_axis == "dp":
+        return mesh.row_leads()
+    if lane_axis == "mp":
+        return list(mesh.rows[0])
+    raise ValueError(f"lane_axis must be 'dp' or 'mp', not {lane_axis!r}")
+
+
+def _on(sequences, device: torch.device):
+    """A resident corpus's view on ``device`` (its replica there); host
+    sequences as they are."""
+    return sequences.on(device) if isinstance(sequences, SeqView) else sequences
+
+
+class LaneGroups:
+    """The lanes of :func:`train_trials_device` split over devices:
+    ``parts`` is one (trainer, :class:`LaneTrainState`, lane indices) a
+    group, each on its trainer's device. ``lanes`` counts every lane;
+    :meth:`lane_state` finds lane i in its group."""
+
+    def __init__(self, parts: Sequence[Tuple[Trainer, LaneTrainState, List[int]]]):
+        self.parts = list(parts)
+
+    @property
+    def lanes(self) -> int:
+        return sum(len(idx) for _, _, idx in self.parts)
+
+    def lane_state(self, i: int) -> TrainState:
+        for _, state, idx in self.parts:
+            if i in idx:
+                return state.lane_state(idx.index(i))
+        raise IndexError(f"lane {i} of {self.lanes}")
 
 
 def evaluate_model_deferred(
@@ -1118,3 +1234,273 @@ def evaluate_model(
     """(y_true, y_pred, p_class1), the contract of the reference's
     ``_eval_model``."""
     return evaluate_model_deferred(trainer, state, sequences, labels, cfg).result()
+
+
+# --- the sharded train step ---------------------------------------------------------
+
+
+class _StatsExchange:
+    """Whole-batch BatchNorm statistics for the shards of one batch, each
+    computed by its own host thread: at a BatchNorm, a shard posts its
+    per-channel sums and waits for every other shard's, then adds them all,
+    in shard order, on its own device (an all-reduce through autograd, so
+    the gradient reaches every shard)."""
+
+    def __init__(self, n: int):
+        self.n = n
+        # a shard that died aborts the barrier; the timeout only bounds a hang
+        self.barrier = threading.Barrier(n, timeout=600.0)
+        self.lock = threading.Lock()
+        self.posted: Dict[str, List[Any]] = {}
+
+    def sync_for(self, site: str, shard: int) -> Callable[[torch.Tensor], tuple]:
+        def sync(x: torch.Tensor):
+            with self.lock:
+                self.posted.setdefault(site, [None] * self.n)[shard] = (
+                    x.sum(dim=(0, 2)), (x * x).sum(dim=(0, 2)), x.shape[0] * x.shape[2])
+            self.barrier.wait()
+            parts = self.posted[site]
+            count = sum(p[2] for p in parts)
+            s1 = s2 = None
+            for p1, p2, _ in parts:
+                s1 = p1.to(x.device) if s1 is None else s1 + p1.to(x.device)
+                s2 = p2.to(x.device) if s2 is None else s2 + p2.to(x.device)
+            mean = s1 / count
+            return mean, torch.clamp(s2 / count - mean * mean, min=0.0)
+
+        return sync
+
+
+@dataclasses.dataclass
+class ShardedTrainState:
+    """A CNN-LSTM's training state laid over a (dp, mp) grid.
+
+    Every dp row holds the whole model: each parameter that a rule of
+    ``parallel.sharding`` matches lives as its mp slices on the row's
+    devices (``slices[name][r][c]``), with its two Adam moments beside it
+    (``optimizers[r][c]``, a ``torch.optim.Adam`` over the leaves at (r, c));
+    every other parameter is a copy at each position. ``models[r][c]`` is
+    the module that position runs (its parameters are the gathered slices,
+    its buffers the BatchNorm statistics, replicated). ``spec`` maps each
+    parameter to its split dim (None: replicated)."""
+
+    grid: DeviceGrid
+    spec: Dict[str, Optional[int]]
+    slices: Dict[str, List[List[torch.Tensor]]]
+    models: List[List[CNNLSTM]]
+    optimizers: List[List[torch.optim.Adam]]
+    lr: float
+
+    @classmethod
+    def shard(cls, state: TrainState, grid: DeviceGrid) -> "ShardedTrainState":
+        """``state`` (model, Adam moments and rate) laid over ``grid`` by
+        the default rule table."""
+        from ..parallel.sharding import param_slice, place_params, shard_params
+
+        named = dict(state.model.named_parameters())
+        params = {n: p.detach() for n, p in named.items()}
+        spec = shard_params(params, grid)
+        slices = place_params(params, grid)
+        models, optimizers = [], []
+        eps = state.optimizer.defaults["eps"]
+        moments = {n: state.optimizer.state.get(p) for n, p in named.items()}
+        for r, row in enumerate(grid.rows):
+            models.append([])
+            optimizers.append([])
+            for c, dev in enumerate(row):
+                model = copy.deepcopy(state.model).to(dev)
+                for p in model.parameters():  # the forward takes the gathered slices
+                    p.data = torch.empty(0, device=dev)
+                leaves = []
+                for n, p in named.items():
+                    leaf = slices[n][r][c]
+                    if p.requires_grad:
+                        leaf.requires_grad_(True)
+                        leaves.append((n, leaf))
+                opt = torch.optim.Adam([leaf for _, leaf in leaves], lr=state.lr, eps=eps)
+                for n, leaf in leaves:
+                    m = moments[n]
+                    if m:
+                        opt.state[leaf] = {
+                            "step": m["step"].clone(),
+                            "exp_avg": param_slice(m["exp_avg"], spec[n], c, grid.mp)
+                            .to(dev, copy=True).contiguous(),
+                            "exp_avg_sq": param_slice(m["exp_avg_sq"], spec[n], c, grid.mp)
+                            .to(dev, copy=True).contiguous(),
+                        }
+                models[-1].append(model)
+                optimizers[-1].append(opt)
+        return cls(grid, spec, slices, models, optimizers, state.lr)
+
+    def _gathered(self, r: int, c: int, device: torch.device) -> Dict[str, torch.Tensor]:
+        from ..parallel.sharding import gather
+
+        return {n: (s[r][c] if self.spec[n] is None else gather(s[r], self.spec[n], device))
+                for n, s in self.slices.items()}
+
+    def state_dict(self) -> Dict[str, torch.Tensor]:
+        """The whole model as a ``CNNLSTM`` state dict on the grid's lead
+        device: row 0's slices gathered, position (0, 0)'s BatchNorm
+        statistics."""
+        dev = self.grid.lead
+        with torch.no_grad():
+            params = {n: t.detach().clone() for n, t in self._gathered(0, 0, dev).items()}
+        buffers = {n: b.detach().to(dev, copy=True) for n, b in self.models[0][0].named_buffers()}
+        return {**params, **buffers}
+
+    def moments(self) -> Dict[str, Tuple[torch.Tensor, torch.Tensor]]:
+        """{trainable parameter: (exp_avg, exp_avg_sq)}, whole, from row 0,
+        on the grid's lead device."""
+        from ..parallel.sharding import gather
+
+        dev = self.grid.lead
+        out = {}
+        for n, s in self.slices.items():
+            row = s[0]
+            states = [self.optimizers[0][c].state.get(row[c]) for c in range(self.grid.mp)]
+            if not row[0].requires_grad or not states[0]:
+                continue
+            out[n] = tuple(
+                (states[0][k].to(dev, copy=True) if self.spec[n] is None
+                 else gather([st[k] for st in states], self.spec[n], dev))
+                for k in ("exp_avg", "exp_avg_sq"))
+        return out
+
+
+def sharded_train_step(state: ShardedTrainState, batch, lengths, labels,
+                       generator: torch.Generator, masked: bool = True,
+                       dropout_rate: Optional[float] = None) -> torch.Tensor:
+    """One Adam step of a :class:`ShardedTrainState` on a padded batch (host
+    arrays or tensors); the mean cross-entropy over the whole batch, on the
+    grid's lead device.
+
+    The batch splits over dp (``parallel.sharding.batch_sharding``), and a
+    row's share over its mp devices, one shard a device. Each shard runs in
+    its own host thread with its row's parameters gathered whole on its
+    device (K3 and, in the backward, K4 take a direction's whole Wh, as the
+    JAX program's kernel does after GSPMD gathers its operand). BatchNorm
+    normalises by the whole batch's statistics and moves every replica's
+    running statistics by them (``BatchNorm.stats_sync``); dropout draws
+    each site at the whole batch's shape on ``generator`` and slices it
+    (``models.cnn_lstm.SplitDraws``), so the masks are the single-device
+    step's. One backward over the shards' summed losses sends each slice
+    its row's gradient; the rows' gradients are summed onto every replica
+    of a slice, and each position's Adam steps its slices."""
+    from types import SimpleNamespace
+
+    from ..models.cnn_lstm import SplitDraws
+
+    grid = state.grid
+    x = torch.as_tensor(batch, dtype=torch.float32)
+    lens = torch.as_tensor(lengths, dtype=torch.int64) if masked else None
+    y = torch.as_tensor(labels, dtype=torch.int64)
+    total = x.shape[0]
+    shards = _shards(grid, total)
+    exchange = _StatsExchange(len(shards))
+    draws = SimpleNamespace(generator=generator, lock=threading.Lock(), draws=[])
+
+    def forward(i: int) -> torch.Tensor:
+        r, c, rows = shards[i]
+        dev = grid.rows[r][c]
+        model = state.models[r][c].train()
+        for name, m in model.named_modules():
+            if isinstance(m, BatchNorm):
+                m.stats_sync = exchange.sync_for(name, i)
+        try:
+            logits = torch.func.functional_call(model, state._gathered(r, c, dev), (
+                x[rows].to(dev), None if lens is None else lens[rows].to(dev), dropout_rate,
+                SplitDraws(draws, rows.start, total)))
+        except BaseException:
+            exchange.barrier.abort()  # release the shards waiting at a BatchNorm
+            raise
+        finally:
+            for m in model.modules():
+                if isinstance(m, BatchNorm):
+                    m.stats_sync = None
+        return F.cross_entropy(logits, y[rows].to(dev), reduction="sum")
+
+    with fp32_convs():
+        losses = in_threads(forward, len(shards))
+        loss = losses[0].to(grid.lead)
+        for part in losses[1:]:
+            loss = loss + part.to(grid.lead)
+        loss = loss / total
+        for row in state.optimizers:
+            for opt in row:
+                opt.zero_grad(set_to_none=True)
+        loss.backward()
+    _reduce_gradients(state)
+    with torch.no_grad():  # a position that computed no shard takes the statistics
+        src = dict(state.models[shards[0][0]][shards[0][1]].named_buffers())
+        busy = {(r, c) for r, c, _ in shards}
+        for r, row in enumerate(state.models):
+            for c, model in enumerate(row):
+                if (r, c) not in busy:
+                    for n, b in model.named_buffers():
+                        b.copy_(src[n])
+    for row in state.optimizers:
+        for opt in row:
+            for group in opt.param_groups:
+                group["lr"] = state.lr
+            opt.step()
+    return loss.detach()
+
+
+def _shards(grid: DeviceGrid, total: int) -> List[Tuple[int, int, slice]]:
+    """(r, c, rows) of each device that computes part of a batch of
+    ``total``: the dp split (``batch_sharding``), then each row's share in
+    contiguous parts over its mp devices (a device given no row is left
+    out)."""
+    from ..parallel.sharding import batch_sharding
+
+    shards = []
+    for r, rows in enumerate(batch_sharding(grid, total)):
+        for c, part in enumerate(np.array_split(np.arange(rows.start, rows.stop), grid.mp)):
+            if len(part):
+                shards.append((r, c, slice(int(part[0]), int(part[-1]) + 1)))
+    return shards
+
+
+def sharded_eval_step(state: ShardedTrainState, batch,
+                      lengths=None) -> torch.Tensor:
+    """Logits (B, num_classes) of a padded batch in eval mode, no gradient,
+    split over the grid as :func:`sharded_train_step` splits it (K1 on each
+    shard), gathered on the grid's lead device."""
+    grid = state.grid
+    x = torch.as_tensor(batch, dtype=torch.float32)
+    lens = None if lengths is None else torch.as_tensor(lengths, dtype=torch.int64)
+    shards = _shards(grid, x.shape[0])
+
+    def forward(i: int) -> torch.Tensor:
+        r, c, rows = shards[i]
+        dev = grid.rows[r][c]
+        with torch.no_grad():
+            return torch.func.functional_call(
+                state.models[r][c].eval(), state._gathered(r, c, dev),
+                (x[rows].to(dev), None if lens is None else lens[rows].to(dev)))
+
+    return torch.cat([out.to(grid.lead) for out in in_threads(forward, len(shards))])
+
+
+def _reduce_gradients(state: ShardedTrainState) -> None:
+    """Each trainable slice's gradient summed over the dp rows (a split
+    parameter: slice c of every row; a replicated one: every position), in
+    grid order on the lead device, and set on every replica."""
+    grid = state.grid
+    for name, s in state.slices.items():
+        if not s[0][0].requires_grad:
+            continue
+        if state.spec[name] is None:
+            columns = [[leaf for row in s for leaf in row]]
+        else:
+            columns = [[row[c] for row in s] for c in range(grid.mp)]
+        for leaves in columns:
+            total = None
+            for leaf in leaves:
+                if leaf.grad is not None:
+                    g = leaf.grad.to(grid.lead)
+                    total = g if total is None else total + g
+            if total is None:
+                total = torch.zeros_like(leaves[0], device=grid.lead)
+            for leaf in leaves:
+                leaf.grad = total.to(leaf.device, copy=True)

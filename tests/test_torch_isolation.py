@@ -253,3 +253,64 @@ def test_cpu_must_be_asked_for():
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError):
         resolve_device("meta")
+
+
+_IMPORT_MULTI_DEVICE = r"""
+import importlib, sys
+for name in ("parallel", "parallel.mesh", "parallel.sharding", "parallel.distributed", "utils",
+             "utils.profiling", "utils.logging", "utils.reliability"):
+    importlib.import_module("robust_speech_analysis_framework_tpu_torch." + name)
+banned = ("jax", "jaxlib", "flax", "optax", "robust_speech_analysis_framework_tpu", "pandas")
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in banned)
+print(leaked)
+sys.exit(1 if leaked else 0)
+"""
+
+
+def test_multi_device_modules_import_no_jax():
+    proc = subprocess.run(
+        [sys.executable, "-c", _IMPORT_MULTI_DEVICE], cwd=REPO, env=_env(),
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("entry", ["make_mesh", "dryrun_multichip"])
+def test_grid_entry_points_default_to_cuda(entry):
+    """Without ``devices=`` the grid lies over the CUDA devices, and there
+    is none to lie over on a host without a card."""
+    from robust_speech_analysis_framework_tpu_torch.entry import dryrun_multichip
+    from robust_speech_analysis_framework_tpu_torch.parallel import make_mesh
+
+    build = {"make_mesh": lambda: make_mesh().devices[0],
+             "dryrun_multichip": lambda: dryrun_multichip(2, verbose=False)["grid"].lead}[entry]
+    if torch.cuda.is_available():
+        if entry == "dryrun_multichip" and torch.cuda.device_count() < 2:
+            with pytest.raises(ValueError, match="asked for 2 devices"):
+                build()
+        else:
+            assert build().type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="devices="):
+            build()
+
+
+def test_initialize_distributed_picks_gloo_only_when_asked_for_the_cpu(monkeypatch):
+    import torch.distributed as dist
+
+    from robust_speech_analysis_framework_tpu_torch.parallel import distributed
+
+    calls = []
+    monkeypatch.setattr(dist, "init_process_group", lambda backend, **kw: calls.append(backend))
+    kw = dict(init_method="file:///nowhere", world_size=2, rank=0)
+    assert distributed.initialize_distributed(**kw, device="cpu") is True
+    assert calls == ["gloo"]
+    if torch.cuda.is_available():
+        assert distributed.initialize_distributed(**kw) is True
+        assert calls == ["gloo", "nccl"]
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            distributed.initialize_distributed(**kw)
+        assert calls == ["gloo"]
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    assert distributed.initialize_distributed() is False  # a world of one: nothing to join
