@@ -1,9 +1,14 @@
 """Drive the PyTorch/CUDA port on one NVIDIA GPU and check every phase.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --march [DIR]
 
 Needs one CUDA device and ``nvcc`` (CUDA_HOME or PATH); exits non-zero
-without them. Phases, each of which raises on failure:
+without them. ``--march`` runs the period march kernel's phase alone (below,
+phase 8) and prints its record; with DIR it builds ``period_march.cu`` from
+DIR instead (another version of the kernel with the same C entry points;
+DIR holds every ``csrc`` source the phase builds). Phases, each of which
+raises on failure:
 
 1. card: name and power limit (nvidia-smi);
 2. build: every kernel under robust_speech_analysis_framework_tpu_torch/csrc
@@ -70,7 +75,11 @@ without them. Phases, each of which raises on failure:
    from the pitch chain on the card) against its plain version on the card
    (≥ 99.9 % of boundaries equal, amplitudes and correlations within 1e-6
    where they agree) and the numpy float64 oracle (≥ 99 %), with its time,
-   the plain version's and its bound;
+   µs a period of the longest lane, the plain version's time and its bound;
+   then its profile build on the same inputs (outputs bit-equal to the
+   timed build's, phase sums within the total): SM clocks and ns of each
+   phase of a voiced step and of an unvoiced step, the SM clock measured
+   against the global timer (tools/warp_latency);
 9. opensmile (the third main path): a seeded corpus of 16 speech-like
    16 kHz files of 20–60 s (three length buckets) through
    OpenSmileExtractor.extract_arrays on the card, counters reset just
@@ -1593,6 +1602,7 @@ def march_kernel_phase(dev: torch.device) -> dict:
     ms = cuda_ms(lambda: march_ops.march_periods(*args), 3)
     bound, bound_by = march_bound_ms(stack, f0_host, nts, card[4], card[0], p_max, cfg.hop)
     longest = int(card[4].max())
+    phases = march_profile(args, card, int(np.argmax(card[4])))
     log(f"[march-kernel] B={len(waves)} N={bucket} P={p_max}: kernel {ms:.4f} ms "
         f"({ms / longest * 1e3:.3f} us a period of the longest lane, {longest} periods), plain "
         f"{plain_ms:.4f} ms, bound {bound:.6f} ms ({bound_by}); no single PyTorch call marches "
@@ -1608,7 +1618,48 @@ def march_kernel_phase(dev: torch.device) -> dict:
     return {"march_periods": {
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
         "bound_by": bound_by, "library_ms": None, "shape": f"B={len(waves)} N={bucket} P={p_max}",
-        "boundaries_equal": worst_same, "periods_longest_lane": longest}}
+        "boundaries_equal": worst_same, "periods_longest_lane": longest,
+        "us_a_period": ms / longest * 1e3, "phases": phases}}
+
+
+def march_profile(args, card, lane: int) -> dict:
+    """The march kernel's profile build on ``args``: its outputs bit-equal
+    to the timed build's (``card``), its phase sums within its total, and
+    the breakdown of lane ``lane`` logged in SM clocks and in ns (the SM
+    clock measured against the global timer, ``tools/warp_latency``): each
+    voiced phase a voiced step, the unvoiced search an unvoiced step."""
+    from robust_speech_analysis_framework_tpu_torch.tools import warp_latency
+
+    (out, prof), prof_ms = timed_once(lambda: march_ops.march_periods_profile(*args))
+    out = [t.cpu().numpy() for t in out]
+    if not all(np.array_equal(a, b) for a, b in zip(out, card)):
+        raise AssertionError("the march kernel's profile build disagrees with its timed build")
+    bd = march_ops.profile_breakdown(prof)
+    sums = sum(bd[name] for name in march_ops.PHASES)
+    if not (sums <= bd["total"]).all():
+        raise AssertionError(f"phase sums {sums} exceed the march's clocks {bd['total']}")
+    ghz, _ = warp_latency.sm_clock_ghz()
+    voiced, unvoiced = int(bd["voiced_steps"][lane]), int(bd["unvoiced_steps"][lane])
+    per = {}
+    for name in march_ops.PHASES:
+        steps = unvoiced if name == "unvoiced" else voiced
+        per[name] = float(bd[name][lane]) / max(steps, 1)
+    total = int(bd["total"][lane])
+    log(f"[march-profile] profile build {prof_ms:.4f} ms, outputs bit-equal to the timed "
+        f"build's; SM clock {ghz:.3f} GHz; lane {lane}: {voiced} voiced and {unvoiced} "
+        f"unvoiced steps, {total} clocks ({total / ghz / 1e6:.4f} ms), phases "
+        f"{int(sums[lane])} clocks ({sums[lane] / total:.1%})")
+    for name in march_ops.PHASES:
+        share = bd[name][lane] / total
+        log(f"[march-profile]   {name:16s} {per[name]:9.1f} clocks {per[name] / ghz:8.1f} ns "
+            f"a{'n unvoiced' if name == 'unvoiced' else ' voiced'} step; {share:6.1%} of the "
+            f"march")
+    voiced_ns = sum(v for k, v in per.items() if k != "unvoiced") / ghz
+    log(f"[march-profile]   a voiced step {voiced_ns:.1f} ns by phases; all lanes' voiced steps "
+        f"{bd['voiced_steps'].tolist()}, unvoiced {bd['unvoiced_steps'].tolist()}")
+    return {"sm_ghz": ghz, "lane": lane, "voiced_steps": voiced, "unvoiced_steps": unvoiced,
+            "total_clocks": total, "profile_ms": prof_ms,
+            "clocks_a_step": per, "voiced_step_ns": voiced_ns}
 
 
 def profile_opensmile_sub_batch(extractor, bucket: int, waves, top: int) -> dict:
@@ -3071,7 +3122,8 @@ def run(dev: torch.device, smi: str) -> None:
             "library_ms": rec["library_ms"], "shape": rec["shape"],
             "on_main_path": name != "lstm_scan",
             **{k: rec[k] for k in ("serving", "praat", "mshds", "sweep_ms", "split", "lanes",
-                                   "boundaries_equal", "periods_longest_lane")
+                                   "boundaries_equal", "periods_longest_lane", "us_a_period",
+                                   "phases")
                if k in rec},
         })
     log(f"[card] {smi}")
@@ -3079,6 +3131,22 @@ def run(dev: torch.device, smi: str) -> None:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(dev),
         "count": torch.cuda.device_count()}}))
+
+
+def march_only(csrc: str = None) -> None:
+    """``--march [DIR]``: the march-kernel phase alone, with its profile,
+    building ``period_march.cu`` from DIR (another version's kernel sources,
+    with the same C entry points) when one is given; prints its record."""
+    if csrc:
+        _build.CSRC_DIR = os.path.abspath(csrc)
+    t0 = time.perf_counter()
+    _build.load("period_march")
+    log(f"[build] period_march from {_build.CSRC_DIR}: {time.perf_counter() - t0:.2f} s")
+    for line in ptxas_report(_build.build_logs.get("period_march", "")):
+        log(f"[build] period_march: {line}")
+    torch.backends.cuda.matmul.fp32_precision = "ieee"
+    torch.backends.cudnn.conv.fp32_precision = "ieee"
+    print(json.dumps(march_kernel_phase(torch.device("cuda", 0))))
 
 
 def main() -> int:
@@ -3090,6 +3158,10 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
+    if len(sys.argv) > 1 and sys.argv[1] == "--march":
+        log(f"[card] {smi}")
+        march_only(sys.argv[2] if len(sys.argv) > 2 else None)
+        return 0
     run(torch.device("cuda", 0), smi)
     return 0
 

@@ -31,12 +31,16 @@ correlations).
 
 Dispatch goes by the tensors' device: CPU tensors take the plain version,
 CUDA tensors launch the kernel or raise. ``march_periods.launches`` counts
-the kernel's launches.
+the kernel's launches. :func:`march_plan` sizes the kernel's shared memory
+(a waveform ring and its running sums of squares, the row queue) and raises
+where a block cannot hold it; :func:`march_periods_profile` runs the kernel's profile
+build, which adds up SM clocks by phase of a step (card only, no count).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import dataclasses
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -54,6 +58,78 @@ def march_geometry(sr: float, srr: float, f0_min: float) -> Tuple[int, int, int]
     w0 = int(round(t0_max)) + 1
     hi = int(t0_max * (1 + srr)) + 2
     return w0, hi, hi + w0 + 8
+
+
+# samples a refill copies; rows the compute warps may queue for the row warp
+CHUNK, QUEUE = 1024, 64
+# shared memory a block can have on the H100 (227 KB); the widest band the
+# kernel searches (8 lags a thread of its 256)
+SMEM_LIMIT, MAX_BAND = 232_448, 2048
+# the profile build's slots: SM clocks of the march and of each phase of a
+# step, then voiced steps · 2^32 + unvoiced steps
+PHASES = ("f0 and decision", "window", "dots", "argmax", "row", "unvoiced")
+
+
+@dataclasses.dataclass(frozen=True)
+class MarchPlan:
+    """The kernel's shared-memory plan: the window geometry of
+    :func:`march_geometry`, a ring of ``ring`` samples refilled ``chunk`` at a
+    time, ``queue`` rows in flight to the row warp, and the bytes a block
+    needs (``period_march_smem_bytes``)."""
+
+    w0: int
+    hi: int
+    gw: int
+    ring: int
+    chunk: int
+    queue: int
+    smem_bytes: int
+
+
+def _pow2(n: int) -> int:
+    return 1 << max(int(n) - 1, 0).bit_length()
+
+
+def march_smem_bytes(ring: int, chunk: int, queue: int) -> int:
+    """Bytes of shared memory a block takes, as ``csrc/period_march.cu``
+    counts them: the float64 ring and its running sums of squares, the
+    chunks' totals, the 8 compute warps' slice sums (2 (32 · 8 + 32)
+    doubles each), the two parities of the warps' argmax slots and of their
+    winners' (corr, e), the row queue (32 B a row), two float32 staging
+    chunks with a float of padding every 32, the unvoiced search's slots and
+    the control words."""
+    return (8 * (2 * ring + ring // chunk + 8 * 2 * (32 * 8 + 32)) + 2 * 8 * 16 + 2 * 8 * 16
+            + 32 * queue + 4 * 2 * (chunk + chunk // 32) + 4 * (2 * 8 + 8))
+
+
+def march_band_max(sr: float, srr: float, f0_min: float) -> int:
+    """An upper bound on the lags of one band, hi − lo + 1, over every F0:
+    the widest band is the lowest F0's, plus one for float32 rounding (the
+    kernel's launch applies the same bound)."""
+    _, hi, _ = march_geometry(sr, srr, f0_min)
+    return hi - max(int(sr / f0_min * (1 - srr)), 8) + 2
+
+
+def march_plan(sr: float, srr: float, f0_min: float, hop: int) -> MarchPlan:
+    """The kernel's plan at these settings: a ring of the least power of two
+    that holds a window and four chunks of lead; raises ``ValueError`` where
+    a block cannot hold it or a band has more lags than the kernel takes
+    (``hop`` is checked, as the kernel reads F0 a frame of ``hop`` samples)."""
+    w0, hi, gw = march_geometry(sr, srr, f0_min)
+    if int(hop) < 1:
+        raise ValueError(f"the period march needs a hop of at least one sample, got {hop}")
+    ring = _pow2(gw + 4 * CHUNK)
+    smem = march_smem_bytes(ring, CHUNK, QUEUE)
+    band = march_band_max(sr, srr, f0_min)
+    if band > MAX_BAND:
+        raise ValueError(f"the period march at sr={sr}, srr={srr}, f0_min={f0_min} searches "
+                         f"bands of up to {band} lags; the kernel takes at most {MAX_BAND}")
+    if smem > SMEM_LIMIT:
+        raise ValueError(
+            f"the period march at sr={sr}, srr={srr}, f0_min={f0_min} needs {smem} B of shared "
+            f"memory a block (a ring of {ring} samples for windows of {gw}); a block has "
+            f"{SMEM_LIMIT}")
+    return MarchPlan(w0, hi, gw, ring, CHUNK, QUEUE, smem)
 
 
 def _f32(v: float) -> float:
@@ -145,6 +221,27 @@ def _check(x, f0, ns, nf) -> None:
                         f"{f0.dtype}, {ns.dtype}, {nf.dtype}")
 
 
+def _launch(entry: str, x, f0, ns, nf, sr, hop, srr, f0_min, p_max, *extra):
+    """Allocate the outputs and launch ``entry`` of ``csrc/period_march.cu``
+    on CUDA tensors (``extra``: buffers passed after the counts)."""
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    plan = march_plan(sr, srr, f0_min, hop)
+    b, n_samples = x.shape
+    x, f0, ns, nf = x.contiguous(), f0.contiguous(), ns.contiguous(), nf.contiguous()
+    starts = torch.empty((b, p_max), dtype=torch.int32, device=x.device)
+    lengths = torch.empty_like(starts)
+    amps = torch.empty((b, p_max), dtype=torch.float32, device=x.device)
+    corrs = torch.empty_like(amps)
+    counts = torch.empty(b, dtype=torch.int32, device=x.device)
+    if b:
+        _call("period_march", entry, x.device, x, f0, ns, nf, starts, lengths, amps, corrs,
+              counts, *extra, b, n_samples, f0.shape[1], p_max, _f32(sr), int(hop),
+              max(int(hop) // 2, 1), _f32(1 - srr), _f32(1 + srr), _f32(f0_min), plan.gw,
+              plan.hi, plan.ring, plan.chunk, plan.queue)
+    return starts, lengths, amps, corrs, counts
+
+
 def march_periods(x, f0, ns, nf, sr: float, hop: int, srr: float, f0_min: float,
                   p_max: int) -> MarchArrays:
     """The period march over a (B, N) float32 stack with (B, T) float32 F0,
@@ -153,22 +250,38 @@ def march_periods(x, f0, ns, nf, sr: float, hop: int, srr: float, f0_min: float,
     _check(x, f0, ns, nf)
     if x.device.type == "cpu":
         return march_periods_reference(x, f0, ns, nf, sr, hop, srr, f0_min, p_max)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
-    b, n_samples = x.shape
-    _, hi_max, gw = march_geometry(sr, srr, f0_min)
-    x, f0, ns, nf = x.contiguous(), f0.contiguous(), ns.contiguous(), nf.contiguous()
-    starts = torch.empty((b, p_max), dtype=torch.int32, device=x.device)
-    lengths = torch.empty_like(starts)
-    amps = torch.empty((b, p_max), dtype=torch.float32, device=x.device)
-    corrs = torch.empty_like(amps)
-    counts = torch.empty(b, dtype=torch.int32, device=x.device)
-    if b:
-        _call("period_march", "period_march_f32", x.device, x, f0, ns, nf, starts, lengths,
-              amps, corrs, counts, b, n_samples, f0.shape[1], p_max, _f32(sr), int(hop),
-              max(int(hop) // 2, 1), _f32(1 - srr), _f32(1 + srr), _f32(f0_min), gw, hi_max)
+    out = _launch("period_march_f32", x, f0, ns, nf, sr, hop, srr, f0_min, p_max)
+    if x.shape[0]:
         march_periods.launches += 1
-    return starts, lengths, amps, corrs, counts
+    return out
 
 
 march_periods.launches = 0
+
+
+def march_periods_profile(x, f0, ns, nf, sr: float, hop: int, srr: float, f0_min: float,
+                          p_max: int) -> Tuple[MarchArrays, torch.Tensor]:
+    """The kernel's profile build on CUDA tensors: the march's outputs (equal
+    to :func:`march_periods`'s) and a (B, 8) int64 tensor of SM clocks, read
+    by thread 0 of each block with ``clock64()``: the march, then each of
+    :data:`PHASES` summed over its steps, then voiced steps · 2^32 + unvoiced
+    steps. For measurement only: not counted in ``march_periods.launches``,
+    and there is no plain version (it raises on CPU tensors)."""
+    _check(x, f0, ns, nf)
+    if x.device.type == "cpu":
+        raise ValueError("the profile build reads the card's SM clocks; it runs on CUDA "
+                         "tensors only")
+    prof = torch.zeros((x.shape[0], 8), dtype=torch.int64, device=x.device)
+    out = _launch("period_march_profile_f32", x, f0, ns, nf, sr, hop, srr, f0_min, p_max,
+                  prof)
+    return out, prof
+
+
+def profile_breakdown(prof) -> Dict[str, np.ndarray]:
+    """The profile buffer as arrays by lane: ``total`` clocks, one array a
+    phase of :data:`PHASES`, ``voiced_steps`` and ``unvoiced_steps``."""
+    p = np.asarray(prof.cpu() if isinstance(prof, torch.Tensor) else prof, dtype=np.int64)
+    out = {"total": p[:, 0]}
+    out.update({name: p[:, 1 + i] for i, name in enumerate(PHASES)})
+    out["voiced_steps"], out["unvoiced_steps"] = p[:, 7] >> 32, p[:, 7] & 0xFFFFFFFF
+    return out

@@ -29,10 +29,8 @@ ITEMS = (  # kernel, what one item is, items an iteration
 )
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("warp_latency: needs one CUDA device", file=sys.stderr)
-        return 1
+def _load() -> ctypes.CDLL:
+    """Build ``warp_latency.cu`` into the kernels' build directory and load it."""
     os.makedirs(_build.BUILD_DIR, exist_ok=True)
     lib_path = os.path.join(_build.BUILD_DIR, "libwarp_latency.so")
     source = os.path.join(os.path.dirname(os.path.abspath(__file__)), "warp_latency.cu")
@@ -40,6 +38,10 @@ def main() -> int:
                    capture_output=True)
     lib = ctypes.CDLL(lib_path)
     lib.run.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    return lib
+
+
+def _launcher(lib: ctypes.CDLL):
     stream = torch.cuda.current_stream().cuda_stream
 
     def launch(which: int, buf: torch.Tensor, n: int) -> None:
@@ -47,15 +49,30 @@ def main() -> int:
         if err != 0:
             raise RuntimeError(f"launch failed: cudaError {err}")
 
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip())
+    return launch
+
+
+def sm_clock_ghz(lib: ctypes.CDLL = None, n: int = 1_000_000) -> tuple:
+    """(GHz, clocks a dependent fma): one warp's ``clock64()`` against the
+    global timer over n · 16 dependent FMAs."""
+    launch = _launcher(lib or _load())
     counts = torch.zeros(8, dtype=torch.int64, device="cuda")
-    n = 1_000_000
     launch(6, counts, n)
     torch.cuda.synchronize()
     clocks, nanos = counts[:2].tolist()
-    ghz = clocks / nanos
-    print(f"SM clock {ghz:.3f} GHz; {clocks / n / 16:.2f} clocks a dependent fma")
+    return clocks / nanos, clocks / n / 16
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("warp_latency: needs one CUDA device", file=sys.stderr)
+        return 1
+    lib = _load()
+    launch = _launcher(lib)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip())
+    ghz, per_fma = sm_clock_ghz(lib)
+    print(f"SM clock {ghz:.3f} GHz; {per_fma:.2f} clocks a dependent fma")
 
     buf = torch.zeros(64, device="cuda")
     n = 100_000

@@ -371,6 +371,136 @@ def test_period_march_kernel_matches_plain_version(cuda_device):
                 assert not t[i, card[4][i]:].any()
 
 
+def _march_case(name):
+    """(stack, f0, ns, nf) of a march case: speech-like files (float32 PCM
+    values) with F0 contours that drive one part of the kernel's ring."""
+    sr, hop = 16000, 160
+    if name == "ring-wraps":  # 4 s voiced throughout: the 8192-sample ring wraps 7 times
+        waves = [_mshds_speech(4.0, 120.0, 1)]
+        contours = [lambda nfr: np.full(nfr, 120.0)]
+    elif name == "jumps":  # 1.2 s unvoiced (19,200 samples, past the ring's end), and
+        # a file whose last voiced frame leaves the cursor within 16 samples of n
+        waves = [_mshds_speech(3.0, 150.0, 2), _mshds_speech(2.0, 200.0, 3)]
+        contours = [lambda nfr: np.where((np.arange(nfr) < 50) | (np.arange(nfr) >= 170),
+                                         150.0, 0.0),
+                    lambda nfr: np.where(np.arange(nfr) < nfr - 30, 200.0, 0.0)]
+    elif name == "f0-min":  # F0 below f0_min reads as f0_min: the widest window, GW
+        waves = [_mshds_speech(3.0, 40.0, 4), _mshds_speech(2.5, 42.0, 5)]
+        contours = [lambda nfr: np.full(nfr, 30.0), lambda nfr: np.full(nfr, 40.0)]
+    elif name == "sixteen":
+        waves = [_mshds_speech(1.0 + 0.1 * i, 90.0 + 12.0 * i, 10 + i) for i in range(16)]
+        contours = [lambda nfr, i=i: np.where(np.arange(nfr) % 60 < 42, 90.0 + 12.0 * i, 0.0)
+                    for i in range(16)]
+    else:  # "one": one file, alone in its launch
+        waves = [_mshds_speech(2.2, 170.0, 6)]
+        contours = [lambda nfr: np.where(np.arange(nfr) % 50 < 35, 170.0, 0.0)]
+    width = max(len(x) for x in waves) | 1  # an odd N: rows are not 16-byte aligned
+    stack = np.zeros((len(waves), width), np.float32)
+    f0 = np.zeros((len(waves), width // hop), np.float32)
+    for i, (x, contour) in enumerate(zip(waves, contours)):
+        stack[i, : len(x)] = x
+        f0[i, : len(x) // hop] = contour(len(x) // hop)
+    ns = torch.tensor([len(x) for x in waves], dtype=torch.int32)
+    nf = torch.tensor([len(x) // hop for x in waves], dtype=torch.int32)
+    return stack, f0, ns, nf, (float(sr), hop, 0.25, 40.0, width // 16)
+
+
+def _assert_march_agrees(card, plain):
+    """The thresholds of test_period_march_kernel_matches_plain_version."""
+    card, plain = [[t.cpu().numpy() for t in out] for out in (card, plain)]
+    assert (card[4] > 0).all()
+    for i in range(len(card[4])):
+        k = min(card[4][i], plain[4][i])
+        assert abs(int(card[4][i]) - int(plain[4][i])) <= max(1, k // 1000)
+        same = card[0][i, :k] == plain[0][i, :k]
+        assert same.mean() >= 0.999
+        np.testing.assert_allclose(card[2][i, :k][same], plain[2][i, :k][same], atol=1e-6)
+        np.testing.assert_allclose(card[3][i, :k][same], plain[3][i, :k][same], atol=1e-6)
+        for t in card[:4]:
+            assert not t[i, card[4][i]:].any()
+    return card
+
+
+@pytest.mark.parametrize("case", ["ring-wraps", "jumps", "f0-min", "sixteen", "one"])
+def test_period_march_kernel_ring_cases_match_plain_version(cuda_device, case):
+    """The kernel against its plain version where its ring is stressed: a
+    voiced stretch that wraps the ring several times, an unvoiced jump past
+    the ring's end and one to within 16 samples of n, F0 pinned at f0_min
+    (windows of GW samples), B = 16 and B = 1; every stack has an odd N. One
+    launch each, the thresholds of the test above."""
+    from robust_speech_analysis_framework_tpu_torch.ops.cuda import jitter as march_ops
+
+    stack, f0, ns, nf, args = _march_case(case)
+    x, f, n, m = (t.to(cuda_device) for t in (torch.from_numpy(stack), torch.from_numpy(f0),
+                                              ns, nf))
+    assert stack.shape[1] % 2 == 1
+    before = march_ops.march_periods.launches
+    card = march_ops.march_periods(x, f, n, m, *args)
+    torch.cuda.synchronize()
+    assert march_ops.march_periods.launches == before + 1
+    got = _assert_march_agrees(card, march_ops.march_periods_reference(x, f, n, m, *args))
+    if case == "jumps":  # the second lane's last period starts before its voicing ends
+        hop = args[1]
+        last = got[0][1, got[4][1] - 1]
+        assert last < (int(nf[1]) - 30) * hop <= last + got[1][1, got[4][1] - 1] + 2 * hop
+    if case == "ring-wraps":
+        assert got[0][0, got[4][0] - 1] > 7 * march_ops.march_plan(16000, 0.25, 40.0, 160).ring
+
+
+@pytest.mark.parametrize("case", ["jumps", "sixteen"])
+def test_period_march_profile_build_equals_timed_build(cuda_device, case):
+    """The profile build's outputs bit-equal to the timed build's, its phase
+    sums within its total clocks, its step counts consistent with the rows
+    found, and no launch counted."""
+    from robust_speech_analysis_framework_tpu_torch.ops.cuda import jitter as march_ops
+
+    stack, f0, ns, nf, args = _march_case(case)
+    x, f, n, m = (t.to(cuda_device) for t in (torch.from_numpy(stack), torch.from_numpy(f0),
+                                              ns, nf))
+    timed = march_ops.march_periods(x, f, n, m, *args)
+    before = march_ops.march_periods.launches
+    out, prof = march_ops.march_periods_profile(x, f, n, m, *args)
+    torch.cuda.synchronize()
+    assert march_ops.march_periods.launches == before
+    for a, b in zip(out, timed):
+        assert torch.equal(a, b)
+    bd = march_ops.profile_breakdown(prof)
+    assert prof.shape == (len(ns), 8) and prof.dtype == torch.int64
+    sums = sum(bd[name] for name in march_ops.PHASES)
+    assert (bd["total"] > 0).all() and (sums <= bd["total"]).all()
+    assert all((bd[name] >= 0).all() for name in march_ops.PHASES)
+    # every row is a voiced step; a broken lane's last voiced step finds none
+    counts = timed[4].cpu().numpy()
+    assert ((bd["voiced_steps"] == counts) | (bd["voiced_steps"] == counts + 1)).all()
+    if case == "jumps":
+        assert (bd["unvoiced_steps"] >= 1).all()
+
+
+def test_period_march_smem_plan_matches_the_kernel(cuda_device):
+    """The wrapper's shared-memory count equals the kernel's own, and a plan
+    that no block can hold raises before any launch."""
+    import ctypes
+
+    from robust_speech_analysis_framework_tpu_torch.ops.cuda import _build
+    from robust_speech_analysis_framework_tpu_torch.ops.cuda import jitter as march_ops
+
+    fn = _build.load("period_march").period_march_smem_bytes
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_int
+    for sr, srr, f0_min, hop in ((16000, 0.25, 40.0, 160), (16000, 0.5, 25.0, 80),
+                                 (8000, 0.25, 40.0, 80), (48000, 0.25, 40.0, 480)):
+        plan = march_ops.march_plan(sr, srr, f0_min, hop)
+        assert fn(plan.ring, plan.chunk, plan.queue) == plan.smem_bytes
+    x = torch.zeros(1, 4001, device=cuda_device)
+    f = torch.full((1, 4), 100.0, device=cuda_device)
+    n = torch.tensor([4001], dtype=torch.int32, device=cuda_device)
+    m = torch.tensor([4], dtype=torch.int32, device=cuda_device)
+    before = march_ops.march_periods.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        march_ops.march_periods(x, f, n, m, 48000.0, 480, 0.25, 20.0, 250)
+    assert march_ops.march_periods.launches == before
+
+
 def test_resumed_train_state_on_card_takes_the_uninterrupted_step(cuda_device, tmp_path):
     """Two train steps on the card, a whole-state checkpoint, a restore into
     a fresh state, one more step on each: parameters, BatchNorm statistics
