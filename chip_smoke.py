@@ -2,13 +2,18 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --march [DIR]
+    python3 chip_smoke.py --train-kernels [DIR]
 
 Needs one CUDA device and ``nvcc`` (CUDA_HOME or PATH); exits non-zero
 without them. ``--march`` runs the period march kernel's phase alone (below,
 phase 8) and prints its record; with DIR it builds ``period_march.cu`` from
 DIR instead (another version of the kernel with the same C entry points;
-DIR holds every ``csrc`` source the phase builds). Phases, each of which
-raises on failure:
+DIR holds every ``csrc`` source the phase builds). ``--train-kernels`` runs
+the training kernels' phase and the lanes kernel phase alone (phase 3 from
+the training kernels on) and prints the pre-pass's record, with a SHA-256 of
+its output at each timed shape; with DIR it builds the sources from DIR, so
+that two versions of ``lstm_train.cu`` are compared by time and digest.
+Phases, each of which raises on failure:
 
 1. card: name and power limit (nvidia-smi);
 2. build: every kernel under robust_speech_analysis_framework_tpu_torch/csrc
@@ -37,7 +42,11 @@ raises on failure:
    from the ones K3 used (printed); K4's sweep alone, and at batch tiles
    1/2/4 at B=64; the dWh kernel alone at ragged shapes (T=1: all zeros;
    T=2; B=1 and 3; H=24, 40, 64; rows that do not fill the last slice) with
-   its row split printed and two calls bit-equal; and every LSTM kernel
+   its row split printed and two calls bit-equal; the pre-pass alone at
+   ragged shapes (T=1; T*B not a multiple of its 128-row tile or below it;
+   B=1 and 67; G=1, 2, 3 and 16; H=8, 24, 64 and 128) with its plan printed
+   and two calls bit-equal; the pre-pass's TFLOP/s, share of its bound and
+   output digest at each timed shape; and every LSTM kernel
    (K1, K3, K4 whole, its pre-pass, its sweep alone, dWh) at the lanes
    shape of a round of 8 trials at the CV corpus's length (T=2176, G=16:
    8 lanes x 2 directions, B=4, H=64 and H=128) against its plain version,
@@ -186,6 +195,7 @@ import collections
 import copy
 import dataclasses
 import functools
+import hashlib
 import json
 import os
 import re
@@ -635,6 +645,91 @@ def dwh_ragged_checks(dev: torch.device, gen: torch.Generator) -> float:
     return worst
 
 
+# T, G, B, H and a factor on the gate inputs of the pre-pass's ragged cases:
+# T = 1 and fewer rows than a tile; T·B not a multiple of the tile; B = 1;
+# B = 67 at G = 3 (312 items: blocks walk runs that cross column groups);
+# G = 16 at H = 64 and 128; gate inputs of up to ~±200, where sigmoid's
+# divisor reaches 2^126 and inf (its exact division) and its outputs are
+# subnormal
+GATE_ACTS_RAGGED_SHAPES = ((1, 1, 5, 8, 1), (2, 2, 1, 8, 1), (37, 2, 3, 24, 1), (700, 1, 1, 64, 1),
+                           (48, 3, 67, 128, 1), (300, 16, 4, 64, 1), (97, 16, 3, 128, 1),
+                           (37, 2, 3, 64, 100))
+
+
+def gate_acts_ragged_checks(dev: torch.device, gen: torch.Generator) -> float:
+    """The pre-pass alone against its plain version at the ragged shapes;
+    returns the largest error."""
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    worst = 0.0
+    for t, g, b, h, factor in GATE_ACTS_RAGGED_SHAPES:
+        gates, wh, _ = _train_kernel_inputs(dev, gen, t, g, b, h)
+        gates *= factor
+        hs = torch.rand(t, g, b, h, device=dev, generator=gen) * 2 - 1
+        acts = lstm_ops.lstm_gate_acts_grouped(gates, hs, wh)
+        again = lstm_ops.lstm_gate_acts_grouped(gates, hs, wh)
+        torch.cuda.synchronize()
+        err = float((acts - lstm_ops.lstm_gate_acts_reference_grouped(gates, hs, wh)).abs().max())
+        plan = lstm_ops._acts_plan(t * b, g, h, n_sms)
+        digest = hashlib.sha256(acts.cpu().numpy().tobytes()).hexdigest()
+        log(f"[train-kernels] pre-pass ragged T={t} G={g} B={b} H={h} gates x{factor}: "
+            f"{plan.row_tiles} row tiles x {plan.col_tiles} column tiles x {g} on {plan.grid} "
+            f"blocks of {plan.per} items; max|d|={err:.3e} (tol {KERNEL_TOL}); two calls "
+            f"bit-equal: {torch.equal(acts, again)}; output sha256 {digest}")
+        if not (err <= KERNEL_TOL and torch.equal(acts, again)):
+            raise AssertionError(f"the pre-pass fails at T={t} G={g} B={b} H={h}")
+        worst = max(worst, err)
+    return worst
+
+
+def gate_acts_report(label: str, gates, hs, wh, acts: torch.Tensor, ms: float,
+                     bound: float) -> dict:
+    """The pre-pass's rate, share of its bound and output digest at a timed
+    shape (the digest holds two builds' outputs equal bit for bit), and its
+    profile build's clocks by phase: its output bit-equal to the timed
+    build's, each phase's share of all blocks' clocks and its clocks an
+    item, beside an item's FMA issue alone (128 FMAs a clock an SM)."""
+    from robust_speech_analysis_framework_tpu_torch.tools import warp_latency
+
+    t, g, b, four_h = acts.shape
+    h = four_h // 4
+    tflops = 2 * t * g * b * h * four_h / ms / 1e9
+    digest = hashlib.sha256(acts.cpu().numpy().tobytes()).hexdigest()
+    plan = lstm_ops._acts_plan(t * b, g, h, torch.cuda.get_device_properties(
+        acts.device).multi_processor_count)
+    log(f"[train-kernels] pre-pass {label} T={t} G={g} B={b} H={h}: {ms:.4f} ms, "
+        f"{tflops:.1f} TFLOP/s fp32, {bound / ms:.1%} of its bound ({bound:.4f} ms); "
+        f"output sha256 {digest}")
+    result = {"tflops": tflops, "share_of_bound": bound / ms, "sha256": digest}
+    if not hasattr(_build.load("lstm_train"), "lstm_gate_acts_profile_f32"):
+        log(f"[train-kernels] pre-pass {label}: no profile build in this build of "
+            f"lstm_train.cu (an older version's, --train-kernels DIR)")
+        return result
+    (out, prof), prof_ms = timed_once(lambda: lstm_ops.lstm_gate_acts_profile(gates, hs, wh))
+    if not torch.equal(out, acts):
+        raise AssertionError(f"the pre-pass's profile build disagrees with its timed build "
+                             f"at {label}")
+    prof = prof.cpu().numpy()
+    total = prof[:, 0]
+    items = np.array([min(plan.per, g * plan.col_tiles * plan.row_tiles - i * plan.per)
+                      for i in range(plan.grid)])
+    ghz, _ = warp_latency.sm_clock_ghz()
+    fma_issue = -(-h // lstm_ops.ACTS_K) * lstm_ops.ACTS_K * lstm_ops.ACTS_ROWS  # clocks an item
+    phases = {name: float(prof[:, 1 + i].sum() / items.sum())
+              for i, name in enumerate(lstm_ops.GATE_ACTS_PHASES)}
+    item_clocks = float(total.sum() / items.sum())
+    log(f"[train-kernels] pre-pass {label} profile build {prof_ms:.4f} ms, output bit-equal to "
+        f"the timed build's; {plan.grid} blocks of {plan.per} items, {plan.smem_bytes} B of "
+        f"shared memory a block; SM clock {ghz:.3f} GHz; slowest block {int(total.max())} clocks "
+        f"({total.max() / ghz / 1e6:.4f} ms); an item {item_clocks:.0f} clocks "
+        f"({item_clocks / ghz / 1e3:.3f} us), its FMA issue alone {fma_issue}; by phase, "
+        f"clocks an item and share: " + ", ".join(
+            f"{name} {v:.0f} ({v / item_clocks:.1%})" for name, v in phases.items()))
+    result["phases"] = {"sm_ghz": ghz, "item_clocks": item_clocks, "fma_issue_clocks": fma_issue,
+                        "slowest_block_clocks": int(total.max()), "profile_ms": prof_ms,
+                        "clocks_an_item": phases}
+    return result
+
+
 def train_kernel_phase(dev: torch.device) -> dict:
     """K3, K4, its gate pre-pass and the dWh kernel against their plain
     versions; times at the training shape beside cuDNN's biLSTM forward and
@@ -691,7 +786,7 @@ def train_kernel_phase(dev: torch.device) -> dict:
         if label != "training":
             continue
 
-        reps = 3
+        reps = 10
         lib = torch.nn.LSTM(h, h, bidirectional=True).to(dev).train()
         x = torch.randn(t, b, h, device=dev, generator=gen, requires_grad=True)
         out, _ = lib(x)
@@ -744,6 +839,8 @@ def train_kernel_phase(dev: torch.device) -> dict:
             log(f"[train-kernels] {name} {label}: kernel {ms:.4f} ms{per_step}, plain "
                 f"{plain_ms:.4f} ms, {lib_label} {library_ms:.4f} ms, bound {bound:.4f} ms "
                 f"({bound_by})")
+        pre = records["lstm_gate_acts_grouped"]
+        pre.update(gate_acts_report(label, gates, hs, wh, acts, pre["ms"], pre["bound_ms"]))
         sweep_ms = _sweep_alone_ms(acts, cs, wh, dhout, 0, 5)
         records["lstm_scan_bwd_grouped"]["sweep_ms"] = sweep_ms
         log(f"[train-kernels] K4 {label} by part: pre-pass "
@@ -751,6 +848,8 @@ def train_kernel_phase(dev: torch.device) -> dict:
             f"({sweep_ms / t * 1e3:.3f} us a step) + dWh {records['lstm_dwh_grouped']['ms']:.4f} "
             f"ms; K4 whole {records['lstm_scan_bwd_grouped']['ms']:.4f} ms")
 
+    pre = records["lstm_gate_acts_grouped"]
+    pre["max_abs_err"] = max(pre["max_abs_err"], gate_acts_ragged_checks(dev, gen))
     rec = records["lstm_dwh_grouped"]
     rec["max_abs_err"] = max(rec["max_abs_err"], dwh_ragged_checks(dev, gen))
     t, g, b, h = TRAIN_SHAPE
@@ -849,6 +948,9 @@ def lanes_kernel_phase(dev: torch.device) -> dict:
             log(f"[train-kernels] lanes {label} {name} T={t} G={g} B={b} H={h}: max|d|="
                 f"{max(errs):.3e} (tol {max(tols):.3g}); kernel {ms:.4f} ms ({ms / t * 1e3:.3f} us "
                 f"a step), plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({bound_by})")
+        pre = timings["lstm_gate_acts_grouped"]
+        pre.update(gate_acts_report(f"lanes {label}", gates, hs, wh, acts, pre["ms"],
+                                    pre["bound_ms"]))
         lib = cuda_ms(lambda: torch.einsum("tgbk,tgbj->gkj", hs[:-1], dg[1:]), 5)
         timings["lstm_dwh_grouped"]["library_ms"] = lib
         timings["lstm_scan_bwd_grouped"]["sweep_ms"] = timings.pop("sweep")["ms"]
@@ -3149,6 +3251,28 @@ def march_only(csrc: str = None) -> None:
     print(json.dumps(march_kernel_phase(torch.device("cuda", 0))))
 
 
+def train_kernels_only(csrc: str = None) -> None:
+    """``--train-kernels [DIR]``: the training kernels' phase and the lanes
+    kernel phase alone, building the sources from DIR (another version's
+    ``lstm_train.cu`` beside the ``lstm_scan.cu`` the phases also run, with
+    the same C entry points) when one is given; prints the pre-pass's record."""
+    if csrc:
+        _build.CSRC_DIR = os.path.abspath(csrc)
+    t0 = time.perf_counter()
+    _build.build_all()
+    log(f"[build] {_build.sources()} from {_build.CSRC_DIR}: {time.perf_counter() - t0:.2f} s")
+    for line in ptxas_report(_build.build_logs.get("lstm_train", "")):
+        log(f"[build] lstm_train: {line}")
+    torch.backends.cuda.matmul.fp32_precision = "ieee"
+    torch.backends.cudnn.conv.fp32_precision = "ieee"
+    torch.backends.cudnn.rnn.fp32_precision = "ieee"
+    dev = torch.device("cuda", 0)
+    records = train_kernel_phase(dev)
+    rec = records["lstm_gate_acts_grouped"]
+    rec["lanes"] = lanes_kernel_phase(dev)["lstm_gate_acts_grouped"]
+    print(json.dumps({"lstm_gate_acts_grouped": rec}))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs one CUDA device",
@@ -3161,6 +3285,11 @@ def main() -> int:
     if len(sys.argv) > 1 and sys.argv[1] == "--march":
         log(f"[card] {smi}")
         march_only(sys.argv[2] if len(sys.argv) > 2 else None)
+        return 0
+    if len(sys.argv) > 1 and sys.argv[1] == "--train-kernels":
+        log(f"[card] {smi}")
+        train_kernels_only(sys.argv[2] if len(sys.argv) > 2 else None)
+        log(f"[card] {smi}")
         return 0
     run(torch.device("cuda", 0), smi)
     return 0

@@ -43,7 +43,7 @@ Each kernel's wrapper counts its launches in ``.launches``.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -369,6 +369,44 @@ def _dwh_split(n_rows: int, g: int, h_dim: int, n_sms: int = 132) -> Tuple[int, 
     return -(-n_rows // rows), rows
 
 
+# csrc/lstm_train.cu's kActRows, kActCols, kActK, kActStages and kActLd:
+# the pre-pass's row tile, column group, chunk of k, ring depth and padded
+# hs row (floats)
+ACTS_ROWS = 128
+ACTS_COLS = 128
+ACTS_K = 32
+ACTS_STAGES = 3
+ACTS_LD = ACTS_K + 4
+
+
+class GateActsPlan(NamedTuple):
+    """How the pre-pass's launch walks its items (column group, row tile):
+    block ``i`` takes items ``i·per .. min(items, (i+1)·per)``, column
+    groups outermost; ``smem_bytes`` is a block's dynamic shared memory."""
+
+    grid: int
+    per: int
+    row_tiles: int
+    col_tiles: int
+    smem_bytes: int
+
+
+def _acts_plan(n_rows: int, g: int, h_dim: int, n_sms: int = 132) -> GateActsPlan:
+    """The plan the pre-pass's C launcher makes for ``n_rows = T·B`` rows
+    (``lstm_gate_acts_grid`` and ``lstm_gate_acts_smem_bytes`` of the kernel
+    file): a block's shared memory holds Wh's column tile (k padded to whole
+    chunks), the ring of hs chunks and the tile's gate inputs, so an SM holds
+    one block, and the items are spread over at most ``n_sms`` blocks, as
+    few a block as that allows."""
+    row_tiles = -(-n_rows // ACTS_ROWS)
+    col_tiles = -(-4 * h_dim // ACTS_COLS)
+    items = g * col_tiles * row_tiles
+    per = max(1, -(-items // n_sms))
+    k_rows = -(-h_dim // ACTS_K) * ACTS_K
+    smem = 4 * (k_rows * ACTS_COLS + ACTS_STAGES * ACTS_ROWS * ACTS_LD + ACTS_ROWS * ACTS_COLS)
+    return GateActsPlan(-(-items // per), per, row_tiles, col_tiles, smem)
+
+
 def lstm_dwh_grouped(hs: torch.Tensor, dgates: torch.Tensor) -> torch.Tensor:
     """dWh (G, H, 4H) = Σ over t ≥ 1 and b of hs[t-1]ᵀ dgates[t]; hs
     (T, G, B, H), dgates (T, G, B, 4H). On CUDA the hand-written split
@@ -401,7 +439,8 @@ def lstm_gate_acts_grouped(
 ) -> torch.Tensor:
     """K4's pre-pass: the activated gates i, f, g, o of every step at once,
     gates (T, G, B, 4H), hs (T, G, B, H), wh (G, H, 4H) → (T, G, B, 4H).
-    One launch of the tiled fp32 product on CUDA (not a library product)."""
+    On CUDA one launch of the hand-written fp32 product (not a library
+    product): persistent blocks over the items of :func:`_acts_plan`."""
     _check(gates, wh, 4, cpu_float64=True)
     _check_like(gates, hs=hs)
     if gates.device.type == "cpu":
@@ -415,6 +454,37 @@ def lstm_gate_acts_grouped(
               gates, hs, wh.contiguous(), acts, t_len, g, b, h_dim)
     lstm_gate_acts_grouped.launches += 1
     return acts
+
+
+# the pre-pass's profile build: SM clocks a block (thread 0's clock64), the
+# block's total and then each phase summed over its items
+GATE_ACTS_PHASES = ("wait", "item", "fma", "epilogue", "copies")
+
+
+def lstm_gate_acts_profile(
+    gates: torch.Tensor, hs: torch.Tensor, wh: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The pre-pass's profile build on CUDA tensors: its output (equal to
+    :func:`lstm_gate_acts_grouped`'s) and a (grid, 6) int64 tensor of SM
+    clocks a block of :func:`_acts_plan`'s grid: the total, then waiting for
+    a chunk, an item's start, the FMAs, the epilogue and issuing a chunk's
+    copies (:data:`GATE_ACTS_PHASES`). For measurement only: not counted in
+    ``lstm_gate_acts_grouped.launches``, and there is no plain version (it
+    raises on CPU tensors)."""
+    _check(gates, wh, 4)
+    _check_like(gates, hs=hs)
+    _unsupported(gates)
+    t_len, g, b, h_dim = _kernel_shape(gates)
+    _contiguous(gates=gates, hs=hs)
+    n_sms = torch.cuda.get_device_properties(gates.device).multi_processor_count
+    plan = _acts_plan(t_len * b, g, h_dim, n_sms)
+    acts = torch.empty_like(gates)
+    prof = torch.zeros((plan.grid, 1 + len(GATE_ACTS_PHASES)), dtype=torch.int64,
+                       device=gates.device)
+    if acts.numel():
+        _call("lstm_train", "lstm_gate_acts_profile_f32", gates.device,
+              gates, hs, wh.contiguous(), acts, prof, t_len, g, b, h_dim)
+    return acts, prof
 
 
 def lstm_scan_bwd_grouped(

@@ -201,6 +201,87 @@ def test_kernels_at_sixteen_groups_match_plain_versions(cuda_device, t, b, h):
         rtol=0, atol=ATOL)
 
 
+@pytest.mark.parametrize("t,g,b,h", [
+    (1, 1, 5, 8),      # T = 1, fewer rows than a tile
+    (2, 2, 1, 8),      # B = 1, two rows
+    (37, 3, 3, 24),    # 111 rows: below one tile, G = 3
+    (700, 1, 1, 64),   # B = 1, 700 rows: a ragged last tile
+    (48, 2, 67, 128),  # B = 67, 3216 rows: 26 tiles, the last of 16 rows
+    (47, 3, 67, 64),   # 150 items, 2 a block: runs cross column groups
+    (300, 16, 4, 64),  # G = 16: 320 items, 3 a block
+    (97, 16, 3, 128),  # G = 16 at H = 128: 192 items, 2 a block
+    (1, 16, 4, 24),    # T = 1 at G = 16
+])
+def test_gate_acts_kernel_ragged_shapes(cuda_device, t, g, b, h):
+    """The pre-pass alone against its plain version at ragged shapes (tiles
+    past T·B, runs of items that cross column groups, T = 1), one launch a
+    call, two calls the same bits."""
+    rng = np.random.default_rng(t * g + b + h)
+    gates = torch.from_numpy((rng.normal(size=(t, g, b, 4 * h)) * 2).astype(np.float32))
+    hs = torch.from_numpy(rng.uniform(-1, 1, size=(t, g, b, h)).astype(np.float32))
+    wh = torch.from_numpy((rng.uniform(-1, 1, size=(g, h, 4 * h)) / h**0.5).astype(np.float32))
+    gates, hs, wh = gates.to(cuda_device), hs.to(cuda_device), wh.to(cuda_device)
+    before = lstm_ops.lstm_gate_acts_grouped.launches
+    acts = lstm_ops.lstm_gate_acts_grouped(gates, hs, wh)
+    again = lstm_ops.lstm_gate_acts_grouped(gates, hs, wh)
+    torch.cuda.synchronize()
+    assert lstm_ops.lstm_gate_acts_grouped.launches == before + 2
+    ref = lstm_ops.lstm_gate_acts_reference_grouped(gates, hs, wh)
+    torch.testing.assert_close(acts, ref, rtol=0, atol=ATOL)
+    assert torch.equal(acts, again)
+
+
+def test_gate_acts_kernel_extreme_inputs(cuda_device):
+    """Gate inputs of up to ~±300: sigmoid's divisor reaches 2^126 and inf,
+    where the kernel takes the IEEE division; outputs stay within ATOL of
+    the plain version and in [0, 1] (sigmoid) and [-1, 1] (tanh)."""
+    rng = np.random.default_rng(11)
+    t, g, b, h = 37, 2, 3, 64
+    gates = torch.from_numpy((rng.normal(size=(t, g, b, 4 * h)) * 100).astype(np.float32))
+    hs = torch.from_numpy(rng.uniform(-1, 1, size=(t, g, b, h)).astype(np.float32))
+    wh = torch.from_numpy((rng.uniform(-1, 1, size=(g, h, 4 * h)) / h**0.5).astype(np.float32))
+    gates, hs, wh = gates.to(cuda_device), hs.to(cuda_device), wh.to(cuda_device)
+    acts = lstm_ops.lstm_gate_acts_grouped(gates, hs, wh)
+    ref = lstm_ops.lstm_gate_acts_reference_grouped(gates, hs, wh)
+    torch.testing.assert_close(acts, ref, rtol=0, atol=ATOL)
+    sig = torch.cat([acts[..., : 2 * h], acts[..., 3 * h :]], dim=-1)
+    assert bool((sig >= 0).all() and (sig <= 1).all() and (acts.abs() <= 1).all())
+    assert bool((sig == 0).any() and (sig == 1).any())
+
+
+def test_gate_acts_plan_matches_the_kernel(cuda_device):
+    """The wrapper's plan (grid, shared memory) equals the kernel file's own
+    count, and the profile build gives the timed build's bits with a row of
+    clocks a block whose phases add up to no more than its total."""
+    import ctypes
+
+    from robust_speech_analysis_framework_tpu_torch.ops.cuda import _build
+
+    lib = _build.load("lstm_train")
+    smem, grid = lib.lstm_gate_acts_smem_bytes, lib.lstm_gate_acts_grid
+    smem.argtypes, grid.argtypes = [ctypes.c_int], [ctypes.c_int] * 4
+    smem.restype = grid.restype = ctypes.c_int
+    for n_rows, g, h, n_sms in ((1, 1, 8, 132), (111, 3, 24, 132), (3216, 2, 128, 132),
+                                (32768, 2, 128, 132), (8704, 16, 64, 132), (8704, 16, 128, 132),
+                                (4800, 16, 40, 7), (65536, 140, 128, 132)):
+        plan = lstm_ops._acts_plan(n_rows, g, h, n_sms)
+        assert smem(h) == plan.smem_bytes
+        assert grid(n_rows, g, h, n_sms) == plan.grid
+    rng = np.random.default_rng(12)
+    t, g, b, h = 300, 2, 17, 128
+    gates = torch.from_numpy(rng.normal(size=(t, g, b, 4 * h)).astype(np.float32)).to(cuda_device)
+    hs = torch.from_numpy(rng.uniform(-1, 1, size=(t, g, b, h)).astype(np.float32)).to(cuda_device)
+    wh = torch.from_numpy((rng.uniform(-1, 1, size=(g, h, 4 * h)) / h**0.5).astype(
+        np.float32)).to(cuda_device)
+    before = lstm_ops.lstm_gate_acts_grouped.launches
+    acts, prof = lstm_ops.lstm_gate_acts_profile(gates, hs, wh)
+    assert lstm_ops.lstm_gate_acts_grouped.launches == before
+    assert torch.equal(acts, lstm_ops.lstm_gate_acts_grouped(gates, hs, wh))
+    n_sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert prof.shape == (lstm_ops._acts_plan(t * b, g, h, n_sms).grid, 6)
+    assert bool((prof[:, 1:] >= 0).all() and (prof[:, 1:].sum(1) <= prof[:, 0]).all())
+
+
 def test_lane_trials_on_card_match_cpu_and_launch_once_for_all_lanes(cuda_device):
     """train_trials_device of 3 lanes (dropout off) on the card and on the
     CPU from the same weights: histories to 1e-4 relative; one lane step

@@ -205,6 +205,111 @@ def test_dwh_split_emulated(t_len, g, b, h):
         assert not dwh.any() and slices == 1
 
 
+ACTS_PLAN_CASES = [  # n_rows = T·B, G, H, SMs
+    (1, 1, 8, 132), (5, 2, 8, 132), (111, 2, 24, 132), (128, 1, 40, 132), (129, 3, 64, 132),
+    (700, 1, 64, 132), (3216, 3, 128, 132), (32768, 2, 128, 132), (8704, 16, 128, 132),
+    (8704, 16, 64, 132), (4800, 16, 64, 7), (291, 16, 128, 132), (65536, 140, 128, 132),
+]
+
+
+@pytest.mark.parametrize("n_rows,g,h,n_sms", ACTS_PLAN_CASES)
+def test_gate_acts_plan(n_rows, g, h, n_sms):
+    """The pre-pass's blocks take every (row tile, column tile, direction)
+    exactly once, no block is empty, the grid is one wave (one block an SM:
+    each holds more than half an SM's shared memory), and the training
+    shape gets the plan the kernel's comment states."""
+    plan = port_lstm._acts_plan(n_rows, g, h, n_sms)
+    items = g * plan.col_tiles * plan.row_tiles
+    assert plan.row_tiles * port_lstm.ACTS_ROWS >= n_rows > (plan.row_tiles - 1) * port_lstm.ACTS_ROWS
+    assert plan.col_tiles * port_lstm.ACTS_COLS >= 4 * h > (plan.col_tiles - 1) * port_lstm.ACTS_COLS
+    covered = np.zeros((g, plan.col_tiles, plan.row_tiles), np.int64)
+    for block in range(plan.grid):
+        run = range(block * plan.per, min(items, (block + 1) * plan.per))
+        assert len(run) >= 1
+        for w in run:
+            cg, rt = divmod(w, plan.row_tiles)
+            covered[cg // plan.col_tiles, cg % plan.col_tiles, rt] += 1
+    assert (covered == 1).all()
+    assert 1 <= plan.grid <= n_sms
+    assert 2 * plan.smem_bytes > 232448 >= plan.smem_bytes
+    if (n_rows, g, h) == (32768, 2, 128):  # T=4096 B=8
+        assert plan == (128, 16, 256, 4, 186368)
+
+
+@pytest.mark.parametrize("h", [8, 24, 40, 64, 128])
+def test_gate_acts_smem_fits_a_block(h):
+    """Wh's column tile, the ring of hs chunks and the gate inputs fit the
+    227 KB a block may hold at every hidden size the kernels take."""
+    plan = port_lstm._acts_plan(1000, 2, h)
+    k_rows = -(-h // port_lstm.ACTS_K) * port_lstm.ACTS_K
+    assert plan.smem_bytes == 4 * (k_rows * 128 + 3 * 128 * 36 + 128 * 128) <= 232448
+
+
+def _emulated_gate_acts(gates, hs, wh, n_sms):
+    """The pre-pass as its kernel orders the arithmetic, in float32: item by
+    item of the plan, a tile of 128 rows (row n = t·B + b reads hs[t-1],
+    zeros at t = 0 and past T·B) by 128 columns, each sum over k ascending
+    (zero-padded to whole chunks of 32) with one fused multiply-add a term
+    (float64 product and sum, rounded once to float32), the gate input
+    added last, then the column's activation. Returns the output and how
+    many times each element was written."""
+    t_len, g, b, four_h = gates.shape
+    h = four_h // 4
+    n_rows = t_len * b
+    plan = port_lstm._acts_plan(n_rows, g, h, n_sms)
+    k_rows = -(-h // port_lstm.ACTS_K) * port_lstm.ACTS_K
+    rows = port_lstm.ACTS_ROWS
+    # (G, n_rows, ·) views: row n of gates is (t, b); of hs, (t-1, b)
+    g_rows = gates.permute(1, 0, 2, 3).reshape(g, n_rows, four_h)
+    h_prev = torch.cat([torch.zeros_like(hs[:1]), hs[:-1]]).permute(1, 0, 2, 3).reshape(g, n_rows, h)
+    out = torch.full((g, n_rows, four_h), float("nan"))
+    writes = torch.zeros((g, n_rows, four_h), dtype=torch.int64)
+    items = g * plan.col_tiles * plan.row_tiles
+    for block in range(plan.grid):
+        for w in range(block * plan.per, min(items, (block + 1) * plan.per)):
+            cg, rt = divmod(w, plan.row_tiles)
+            d, j0, n0 = cg // plan.col_tiles, (cg % plan.col_tiles) * port_lstm.ACTS_COLS, rt * rows
+            n1, j1 = min(n_rows, n0 + rows), min(four_h, j0 + port_lstm.ACTS_COLS)
+            a = torch.zeros(rows, k_rows, dtype=torch.float64)
+            a[: n1 - n0, :h] = h_prev[d, n0:n1].double()
+            wt = torch.zeros(k_rows, j1 - j0, dtype=torch.float64)
+            wt[:h] = wh[d, :, j0:j1].double()
+            acc = torch.zeros(rows, j1 - j0, dtype=torch.float32)
+            for k in range(k_rows):
+                acc = (a[:, k : k + 1] * wt[k] + acc.double()).float()
+            z = g_rows[d, n0:n1, j0:j1] + acc[: n1 - n0]
+            cols = torch.arange(j0, j1)
+            tanh = (cols // h == 2)[None]
+            out[d, n0:n1, j0:j1] = torch.where(tanh, torch.tanh(z), torch.sigmoid(z))
+            writes[d, n0:n1, j0:j1] += 1
+    back = lambda x: x.reshape(g, t_len, b, four_h).permute(1, 0, 2, 3)
+    return back(out), back(writes)
+
+
+@pytest.mark.parametrize("t_len,g,b,h,n_sms", [
+    (1, 2, 3, 16, 132), (2, 2, 1, 8, 132), (37, 2, 3, 8, 132), (37, 2, 3, 24, 132),
+    (64, 1, 9, 40, 132), (300, 3, 1, 64, 132), (48, 3, 67, 16, 132), (97, 2, 3, 64, 5),
+    (40, 2, 7, 32, 3),
+])
+def test_gate_acts_emulated(t_len, g, b, h, n_sms):
+    """A float32 emulation of the pre-pass's tiles and order equals the
+    plain version to 1e-5 of its scale, writes every element exactly once
+    and nothing else (T = 1: the gate inputs alone); at a few SMs the
+    blocks walk runs that cross column groups."""
+    rng = np.random.default_rng(t_len * b + h)
+    gates = torch.from_numpy((rng.normal(size=(t_len, g, b, 4 * h)) * 2).astype(np.float32))
+    hs = torch.from_numpy(rng.uniform(-1, 1, size=(t_len, g, b, h)).astype(np.float32))
+    wh = torch.from_numpy((rng.uniform(-1, 1, size=(g, h, 4 * h)) / h**0.5).astype(np.float32))
+    got, writes = _emulated_gate_acts(gates, hs, wh, n_sms)
+    ref = port_lstm.lstm_gate_acts_reference_grouped(gates, hs, wh)
+    assert (writes == 1).all()
+    scale = max(1.0, float(ref.abs().max()))
+    assert float((got - ref).abs().max()) <= 1e-5 * scale
+    if t_len == 1:
+        first = port_lstm.lstm_gate_acts_reference_grouped(gates, torch.zeros_like(hs), wh)
+        assert torch.equal(ref, first)
+
+
 def test_autograd_function_matches_autograd_of_plain_forward(inputs):
     gates, wh, dhout = inputs
     g1, w1 = (x.clone().requires_grad_() for x in _t(gates, wh))
