@@ -491,12 +491,20 @@ def _device_us(e) -> float:
     return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
 
 
+def _on_device(e) -> bool:
+    """Whether a profiler event (or row) is the device's own work: a kernel
+    or a copy, not the device-side mirror of a ``record_function`` range
+    (the program's spans open one while the profiler records), which spans
+    the whole range."""
+    from torch.autograd import DeviceType
+
+    return e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)
+
+
 def _device_rows(prof) -> list:
     """The profile's device kernel rows, longest first (an operator's row
     repeats its kernels' time, so only the device's own)."""
-    from torch.autograd import DeviceType
-
-    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    rows = [e for e in prof.key_averages() if _on_device(e)]
     return sorted(rows, key=_device_us, reverse=True)
 
 
@@ -1780,8 +1788,7 @@ def profile_opensmile_sub_batch(extractor, bucket: int, waves, top: int) -> dict
     (window,) = [e for e in events if e.name == "opensmile:sub-batch"
                  and e.device_type == DeviceType.CPU]
     lo, hi = window.time_range.start, window.time_range.end
-    device = [e for e in events if e.device_type == DeviceType.CUDA
-              and not e.name.startswith("opensmile:")]
+    device = [e for e in events if _on_device(e) and not e.name.startswith("opensmile:")]
     busy_us = _union_us([(e.time_range.start, e.time_range.end) for e in device], lo, hi)
     march_us = sum(e.time_range.elapsed_us() for e in device if "period_march" in e.name)
     down = [e for e in device if "DtoH" in e.name or "Device -> Pinned" in e.name
@@ -2068,7 +2075,7 @@ def profile_mshds_tail(xs, dev: torch.device) -> None:
     # the device's own work: kernels and copies, not the device-side
     # mirrors of the profiler ranges
     kernels = [(e.time_range.start, e.time_range.end) for e in events
-               if e.device_type == DeviceType.CUDA and not e.name.startswith("mshds:")]
+               if _on_device(e) and not e.name.startswith("mshds:")]
     busy_us = _union_us(kernels, lo, hi)
     if busy_us == 0:
         log("[mshds] the profiler recorded no device time in the tail's window")

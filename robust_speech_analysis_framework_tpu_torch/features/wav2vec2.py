@@ -53,6 +53,7 @@ from ..models.wav2vec2 import (ShardedWav2Vec2, Wav2Vec2Config, Wav2Vec2Model,
                                port_hf_state_dict)
 from ..parallel.mesh import DeviceGrid
 from ..train.loops import _aligned_length
+from ..utils.profiling import count, span, spanned
 
 SAMPLE_RATE = 16000
 MIN_SECONDS = 0.5
@@ -262,6 +263,7 @@ class Wav2Vec2Extractor:
     def _frames(self, n_samples: int) -> int:
         return int(self.config.output_length(n_samples))
 
+    @spanned("w2v2.extract")
     def extract_sequences(
         self, waveforms: Mapping[str, np.ndarray], verbose: bool = True
     ) -> Dict[str, np.ndarray]:
@@ -275,21 +277,24 @@ class Wav2Vec2Extractor:
 
         out_per_chunk: List[Optional[np.ndarray]] = [None] * len(chunk_data)
         for sel, payload in self._run_batches(chunk_data, forward):
-            hidden = dequantize_sequences(payload)
-            for j, i in enumerate(sel):
-                out_per_chunk[i] = hidden[j, : self._frames(chunk_refs[i].n_samples)]
+            with span("w2v2.assemble"):
+                hidden = dequantize_sequences(payload)
+                for j, i in enumerate(sel):
+                    out_per_chunk[i] = hidden[j, : self._frames(chunk_refs[i].n_samples)]
 
-        sequences: Dict[str, List[Tuple[int, np.ndarray]]] = {n: [] for n in names}
-        for ref, emb in zip(chunk_refs, out_per_chunk):
-            sequences[names[ref.file_index]].append((ref.order, emb))
-        return {
-            name: np.vstack([e for _, e in sorted(parts, key=lambda p: p[0])]).astype(
-                np.float32, copy=False
-            )
-            for name, parts in sequences.items()
-            if parts
-        }
+        with span("w2v2.stack"):
+            sequences: Dict[str, List[Tuple[int, np.ndarray]]] = {n: [] for n in names}
+            for ref, emb in zip(chunk_refs, out_per_chunk):
+                sequences[names[ref.file_index]].append((ref.order, emb))
+            return {
+                name: np.vstack([e for _, e in sorted(parts, key=lambda p: p[0])]).astype(
+                    np.float32, copy=False
+                )
+                for name, parts in sequences.items()
+                if parts
+            }
 
+    @spanned("w2v2.extract")
     def extract_sequences_resident(
         self,
         waveforms: Mapping[str, np.ndarray],
@@ -344,6 +349,7 @@ class Wav2Vec2Extractor:
             pass
         return ResidentSequences(names, buf, np.asarray(total, np.int64))
 
+    @spanned("w2v2.extract")
     def extract_embeddings_arrays(
         self, waveforms: Mapping[str, np.ndarray], verbose: bool = True
     ) -> Tuple[List[str], np.ndarray]:
@@ -391,6 +397,7 @@ class Wav2Vec2Extractor:
 
     # --- the batch pipeline ---------------------------------------------
 
+    @spanned("w2v2.gather")
     def _gather_chunks(self, waveforms: Mapping[str, np.ndarray], verbose: bool):
         """Validate + skip sub-0.5 s inputs and flatten every file into
         (names, chunk_refs, chunk_data)."""
@@ -410,12 +417,16 @@ class Wav2Vec2Extractor:
                 chunk_data.append(c)
         return names, chunk_refs, chunk_data
 
+    @spanned("w2v2.pack")
     def _pack(self, chunk_data: Sequence[np.ndarray], sel: range) -> Tuple[np.ndarray, np.ndarray]:
         """One (batch_size, chunk_size) batch in the upload dtype and its
         (batch_size,) int32 sample counts. A short last batch is padded with
-        zero chunks of ``min_samples``, so every batch has one shape."""
+        zero chunks of ``min_samples``, so every batch has one shape.
+        Counts the batch's real samples (``w2v2.samples``) and the zero
+        samples the encoder runs on besides (``w2v2.pad_samples``)."""
         batch = np.zeros((self.batch_size, self.chunk_size), self.upload_dtype)
         lengths = np.full(self.batch_size, self.min_samples, np.int32)
+        real = 0
         for j, i in enumerate(sel):
             c = chunk_data[i]
             if self.normalize:
@@ -424,8 +435,12 @@ class Wav2Vec2Extractor:
                 c = np.clip(np.round(c * 32768.0), -32768, 32767).astype(np.int16)
             batch[j, : len(c)] = c
             lengths[j] = len(c)
+            real += len(c)
+        count("w2v2.samples", real)
+        count("w2v2.pad_samples", batch.size - real)
         return batch, lengths
 
+    @spanned("w2v2.encode")
     def _encode(self, wav: torch.Tensor,
                 lengths: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """(B, L) waveforms (int16 → ·1/32768, the inverse of the PCM lattice)
@@ -464,6 +479,7 @@ class Wav2Vec2Extractor:
         while inflight:
             yield _fetched(*inflight.popleft())
 
+    @spanned("w2v2.upload")
     def _upload(self, arrays: Sequence[np.ndarray], stream) -> List[torch.Tensor]:
         """Host arrays → device tensors: on the card, from pinned memory with
         non-blocking copies on ``stream``, which the compute stream waits
@@ -479,6 +495,7 @@ class Wav2Vec2Extractor:
             t.record_stream(compute)  # allocated on the copy stream, used on compute
         return out
 
+    @spanned("w2v2.download")
     def _download(self, payload: Tuple[torch.Tensor, ...], stream):
         """Device tensors → (host tensors, event that marks their arrival):
         on the card, non-blocking copies into pinned memory on ``stream``
@@ -496,11 +513,13 @@ class Wav2Vec2Extractor:
         return host, done
 
 
+@spanned("w2v2.fetch")
 def _fetched(sel: range, pending) -> Tuple[range, Tuple[np.ndarray, ...]]:
     host, done = pending
     if done is None:
         return sel, tuple(t.numpy() for t in host)
-    done.synchronize()
+    with span("w2v2.wait"):
+        done.synchronize()
     # copied out of pinned memory, which goes back to the allocator for the
     # next batches
     return sel, tuple(t.numpy().copy() for t in host)

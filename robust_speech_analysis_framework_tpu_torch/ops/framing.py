@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
+from ..utils.profiling import span
 
 
 def _map_tensors(tree: Any, fn: Callable[[torch.Tensor], Any]) -> Any:
@@ -59,10 +60,11 @@ def _stage(tree: Any):
 def _to_host(tree: Any) -> Any:
     """``tree`` with every tensor as a numpy array. CUDA tensors are copied
     into pinned buffers without blocking, then each device they lie on is
-    synchronised once for all of them."""
+    synchronised once for all of them (the span ``fetch.wait``)."""
     staged, on_card = _stage(tree)
-    for dev in on_card:
-        torch.cuda.synchronize(dev)
+    with span("fetch.wait"):
+        for dev in on_card:
+            torch.cuda.synchronize(dev)
     return _map_tensors(staged, torch.Tensor.numpy)
 
 

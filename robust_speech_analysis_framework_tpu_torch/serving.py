@@ -26,6 +26,7 @@ from .device import DeviceLike, resolve_device
 from .features.wav2vec2 import Wav2Vec2Extractor
 from .models.cnn_lstm import CNNLSTM
 from .models.weights import cnn_lstm_state_dict_from_flat, infer_architecture
+from .utils.profiling import span, spanned
 
 LABELS = {0: "Control", 1: "Patient"}
 
@@ -109,6 +110,7 @@ class Predictor:
             )
         return self.extractor
 
+    @spanned("serve.classify")
     def predict_sequence(self, sequence: np.ndarray) -> Prediction:
         """Classify a precomputed (T, D) embedding sequence."""
         t0 = time.perf_counter()
@@ -129,6 +131,7 @@ class Predictor:
             latency_seconds=time.perf_counter() - t0,
         )
 
+    @spanned("serve.predict")
     def predict(self, waveform: np.ndarray) -> Prediction:
         """Classify a 16 kHz mono waveform (extraction + model)."""
         t0 = time.perf_counter()
@@ -151,7 +154,8 @@ class Predictor:
         too short for feature extraction (<0.5 s); pass ``skip_failed=True``
         to omit such files from the result instead.
         """
-        waves = load_corpus_mono_16k(paths)
+        with span("serve.decode"):
+            waves = load_corpus_mono_16k(paths)
         seqs = self._require_extractor().extract_sequences(waves, verbose=False)
         failed = [os.path.basename(p) for p in paths
                   if os.path.basename(p) not in seqs]

@@ -93,6 +93,7 @@ from ..models.cnn_lstm import CNNLSTM, BatchNorm, CNNLSTMLanes
 from ..models.init import init_training_weights_
 from ..ops.framing import Deferred
 from ..parallel.mesh import DeviceGrid, in_threads
+from ..utils.profiling import span, spanned
 
 
 @dataclasses.dataclass
@@ -374,6 +375,7 @@ class Trainer:
 
     # --- steps -------------------------------------------------------------
 
+    @spanned("train.step")
     def train_step(self, state: TrainState, batch, lengths, labels,
                    generator: Optional[torch.Generator],
                    masked: bool = True, dropout_rate: Optional[float] = None,
@@ -407,6 +409,7 @@ class Trainer:
             lens = self._tensor(lengths, torch.int64) if masked else None
             return model(x, lens)
 
+    @spanned("train.step")
     def train_step_lanes(self, state: LaneTrainState, batch, lengths, labels,
                          generator: Optional[torch.Generator], masked: bool = True,
                          dropout_rates: Optional[torch.Tensor] = None,
@@ -476,9 +479,10 @@ class Trainer:
         n = len(sequences)
         groups: List[np.ndarray] = []
         outs: List[torch.Tensor] = []
-        for idx, batch, lengths in self._eval_batches(sequences, cfg):
-            groups.append(idx)
-            outs.append(self.eval_step(state, batch, lengths, cfg.use_length_masking))
+        with span("train.eval"):
+            for idx, batch, lengths in self._eval_batches(sequences, cfg):
+                groups.append(idx)
+                outs.append(self.eval_step(state, batch, lengths, cfg.use_length_masking))
 
         def finalize(host):
             logits = np.zeros((n, self.model.num_classes), np.float32)
@@ -505,9 +509,10 @@ class Trainer:
         n = len(sequences)
         groups: List[np.ndarray] = []
         outs: List[torch.Tensor] = []
-        for idx, batch, lengths in self._eval_batches(sequences, cfg):
-            groups.append(idx)
-            outs.append(self.eval_step_lanes(states, batch, lengths, cfg.use_length_masking))
+        with span("train.eval"):
+            for idx, batch, lengths in self._eval_batches(sequences, cfg):
+                groups.append(idx)
+                outs.append(self.eval_step_lanes(states, batch, lengths, cfg.use_length_masking))
 
         def finalize(host):
             logits = np.zeros((states.model.lanes, n, self.model.num_classes), np.float32)
@@ -801,6 +806,7 @@ def _shared_corpus_views(train_sequences, val_sequences) -> bool:
     )
 
 
+@spanned("train.operands")
 def _fold_operands(train_sequences, train_labels, val_sequences, val_labels,
                    cfg: TrainConfig, put: Callable[[np.ndarray, torch.dtype], torch.Tensor]):
     """The 10 tensor operands of a device-resident fold:
@@ -909,32 +915,35 @@ def _run_epochs(trainer: Trainer, state: TrainState, generator: torch.Generator,
     val_hist: List[float] = []
 
     for epoch in range(cfg.epochs):
-        epoch_losses = [
-            trainer.train_step(state, batch, lengths, labs, generator,
-                               cfg.use_length_masking, cfg.dropout_rate, cfg.remat)
-            for batch, lengths, labs in train_batches(epoch)
-        ]
-        # one fetch per epoch, not per step
-        train_hist.append(float(np.mean(torch.stack(epoch_losses).cpu().numpy())))
+        with span("train.epoch"):
+            epoch_losses = [
+                trainer.train_step(state, batch, lengths, labs, generator,
+                                   cfg.use_length_masking, cfg.dropout_rate, cfg.remat)
+                for batch, lengths, labs in train_batches(epoch)
+            ]
+            with span("train.fetch"):  # one fetch per epoch, not per step
+                train_hist.append(float(np.mean(torch.stack(epoch_losses).cpu().numpy())))
 
-        val_loss = _val_loss(trainer, state, val_batches(), cfg)
-        val_hist.append(val_loss)
-        if cfg.use_plateau:
-            state.lr = scheduler.step(val_loss, state.lr)
+            with span("train.val"):
+                val_loss = _val_loss(trainer, state, val_batches(), cfg)
+            with span("train.books"):
+                val_hist.append(val_loss)
+                if cfg.use_plateau:
+                    state.lr = scheduler.step(val_loss, state.lr)
 
-        if val_loss < best_val:
-            best_val = val_loss
-            best = _snapshot(state)
-            epochs_no_improve = 0
-        else:
-            epochs_no_improve += 1
-        if verbose:
-            print(f"epoch {epoch + 1}: train {train_hist[-1]:.4f} "
-                  f"val {val_loss:.4f} lr {state.lr:.2e}")
-        if epochs_no_improve >= cfg.patience:
+                if val_loss < best_val:
+                    best_val = val_loss
+                    best = _snapshot(state)
+                    epochs_no_improve = 0
+                else:
+                    epochs_no_improve += 1
             if verbose:
-                print(f"  > early stop at epoch {epoch + 1}")
-            break
+                print(f"epoch {epoch + 1}: train {train_hist[-1]:.4f} "
+                      f"val {val_loss:.4f} lr {state.lr:.2e}")
+            if epochs_no_improve >= cfg.patience:
+                if verbose:
+                    print(f"  > early stop at epoch {epoch + 1}")
+                break
 
     if cfg.restore_best:
         _restore(state, best)
@@ -1035,51 +1044,57 @@ def _run_epochs_lanes(trainer: Trainer, state: LaneTrainState, generator: torch.
     stopped: Optional[Dict[str, Any]] = None  # lanes frozen without restore_best
 
     for epoch in range(cfg.epochs):
-        steps = [
-            trainer.train_step_lanes(state, batch, lengths, labs, generator,
-                                     cfg.use_length_masking, rates, cfg.remat)
-            for batch, lengths, labs in train_batches(epoch)
-        ]
-        val = _val_losses_lanes(trainer, state, val_batches(), cfg)
-        host = torch.cat([torch.stack(steps), val]).cpu().numpy()  # one fetch
-        train_losses, val_losses = host[: len(steps)], host[len(steps):]
-        new_lrs, improved, done = list(lrs), [], []
-        for i in (i for i in range(k) if active[i]):
-            # a lane's column alone, so the mean adds as the sequential fold's does
-            hists[i][0].append(float(np.mean(np.ascontiguousarray(train_losses[:, i]))))
-            val_loss = float(np.mean(np.ascontiguousarray(val_losses[:, i])))
-            hists[i][1].append(val_loss)
-            if cfg.use_plateau:
-                new_lrs[i] = schedulers[i].step(val_loss, lrs[i])
-            if val_loss < best_val[i]:
-                best_val[i] = val_loss
-                no_improve[i] = 0
-                improved.append(i)
-            else:
-                no_improve[i] += 1
-            if no_improve[i] >= cfg.patience:
-                active[i] = False
-                done.append(i)
-        if new_lrs != lrs:
-            lrs[:] = new_lrs
-            state.lr.copy_(torch.tensor(lrs, dtype=torch.float64))
-        if best is not None and improved:
-            state.copy_lanes(best, state.live(), improved)
-        if done and best is None:
-            if stopped is None:
-                stopped = state.snapshot()
-            else:
-                state.copy_lanes(stopped, state.live(), done)
-        if not any(active):
-            break
+        with span("train.epoch"):
+            steps = [
+                trainer.train_step_lanes(state, batch, lengths, labs, generator,
+                                         cfg.use_length_masking, rates, cfg.remat)
+                for batch, lengths, labs in train_batches(epoch)
+            ]
+            with span("train.val"):
+                val = _val_losses_lanes(trainer, state, val_batches(), cfg)
+            with span("train.fetch"):
+                host = torch.cat([torch.stack(steps), val]).cpu().numpy()  # one fetch
+            with span("train.books"):
+                train_losses, val_losses = host[: len(steps)], host[len(steps):]
+                new_lrs, improved, done = list(lrs), [], []
+                for i in (i for i in range(k) if active[i]):
+                    # a lane's column alone, so the mean adds as the sequential fold's does
+                    hists[i][0].append(float(np.mean(np.ascontiguousarray(train_losses[:, i]))))
+                    val_loss = float(np.mean(np.ascontiguousarray(val_losses[:, i])))
+                    hists[i][1].append(val_loss)
+                    if cfg.use_plateau:
+                        new_lrs[i] = schedulers[i].step(val_loss, lrs[i])
+                    if val_loss < best_val[i]:
+                        best_val[i] = val_loss
+                        no_improve[i] = 0
+                        improved.append(i)
+                    else:
+                        no_improve[i] += 1
+                    if no_improve[i] >= cfg.patience:
+                        active[i] = False
+                        done.append(i)
+                if new_lrs != lrs:
+                    lrs[:] = new_lrs
+                    state.lr.copy_(torch.tensor(lrs, dtype=torch.float64))
+                if best is not None and improved:
+                    state.copy_lanes(best, state.live(), improved)
+                if done and best is None:
+                    if stopped is None:
+                        stopped = state.snapshot()
+                    else:
+                        state.copy_lanes(stopped, state.live(), done)
+            if not any(active):
+                break
 
-    if best is not None:
-        state.copy_lanes(state.live(), best, range(k))
-    elif stopped is not None:
-        state.copy_lanes(state.live(), stopped, [i for i in range(k) if not active[i]])
+    with span("train.books"):
+        if best is not None:
+            state.copy_lanes(state.live(), best, range(k))
+        elif stopped is not None:
+            state.copy_lanes(state.live(), stopped, [i for i in range(k) if not active[i]])
     return hists
 
 
+@spanned("train.trials")
 def train_trials_device(
     trainer: Trainer,
     train_sequences: Sequence[np.ndarray],
@@ -1152,10 +1167,11 @@ def _train_lanes(trainer: Trainer, train_sequences, train_labels, val_sequences,
                  ) -> Tuple[LaneTrainState, List[Tuple[List[float], List[float]]]]:
     """The lanes of :func:`train_trials_device` on ``trainer``'s device."""
     lrs = [float(v) for v in learning_rates]
-    state = LaneTrainState.replicate(trainer.init_state(cfg.seed, cfg.learning_rate),
-                                     trainer._tensor(np.asarray(lrs), torch.float64))
-    rates = trainer._tensor(np.asarray(dropout_rates, np.float64), torch.float64)
-    generator = torch.Generator(device=trainer.device).manual_seed(cfg.seed)
+    with span("train.init"):
+        state = LaneTrainState.replicate(trainer.init_state(cfg.seed, cfg.learning_rate),
+                                         trainer._tensor(np.asarray(lrs), torch.float64))
+        rates = trainer._tensor(np.asarray(dropout_rates, np.float64), torch.float64)
+        generator = torch.Generator(device=trainer.device).manual_seed(cfg.seed)
     (x_tr, len_tr, y_tr, full, rem, x_va, len_va, y_va, va_full, va_rem) = _fold_operands(
         train_sequences, train_labels, val_sequences, val_labels, cfg, trainer._tensor)
     hists = _run_epochs_lanes(

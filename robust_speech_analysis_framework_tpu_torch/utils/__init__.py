@@ -1,7 +1,7 @@
 """Instrumentation, logging and reliability helpers."""
 
 from .logging import get_logger
-from .profiling import ThroughputMeter, span, span_report, stage_timer, trace_to
+from .profiling import ThroughputMeter, count, counters, span, span_report, spanned, stage_timer, tracing
 from .reliability import deterministic_check, with_oom_downshift
 
 __all__ = [
@@ -9,7 +9,10 @@ __all__ = [
     "stage_timer",
     "span",
     "span_report",
-    "trace_to",
+    "spanned",
+    "count",
+    "counters",
+    "tracing",
     "get_logger",
     "deterministic_check",
     "with_oom_downshift",

@@ -1,4 +1,4 @@
-"""Throughput counters, stage timers, named spans and device traces.
+"""Throughput counters, stage timers, and the port's spans and counters.
 
 Counterpart of ``robust_speech_analysis_framework_tpu/utils/profiling.py``:
 
@@ -7,20 +7,37 @@ Counterpart of ``robust_speech_analysis_framework_tpu/utils/profiling.py``:
 * :func:`stage_timer`: a block timed into a meter; ``sync`` (a tensor, or
   lists/tuples/dicts of them) waits for the CUDA devices those tensors lie
   on before the clock stops, and for nothing on the CPU;
-* :func:`span` / :func:`span_report`: cumulative wall per labelled region;
-* :func:`trace_to`: a ``torch.profiler`` trace of a block, written as a
-  Chrome trace into a directory (the JAX package's ``jax.profiler`` XPlane).
+* :func:`span` / :func:`count`: a named region and a named counter at a
+  layer boundary of the program (extraction, training, fetches, serving);
+  :func:`spanned` makes every call of a function a span.
+  They record only while tracing is on: inside a :func:`tracing` block, or
+  while a ``torch.profiler`` records. Off, a span is one shared no-op
+  context manager (two flag reads, no clock, no allocation) and a count
+  adds nothing. On, a span adds its wall time to its name and to its
+  parent's children (a stack per thread, so spans opened in worker threads
+  are roots of their own thread); while the profiler records it also opens
+  ``record_function(name)``, so its interval lies in the profiler's trace,
+  on the kernels' clock, where the benchmark's ``port_bench/spans.py``
+  reads it;
+* :func:`span_report` / :func:`counters`: what the spans and counters
+  recorded, for an operator who wraps a run in :func:`tracing`.
+
+The JAX package's ``span`` is always on and has no parents; this one is
+off unless asked for, so the program's hot loops may carry it.
 """
 
 from __future__ import annotations
 
 import contextlib
-import os
-import time
+import functools
+import threading
 from dataclasses import dataclass, field
-from typing import Any, Dict, Iterator, Optional, Set
+from time import perf_counter
+from typing import Any, Callable, Dict, Iterator, List, Optional, Set
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
+from torch.autograd.profiler import record_function
 
 
 @dataclass
@@ -93,55 +110,123 @@ def stage_timer(
 ) -> Iterator[None]:
     """Time a block into ``meter``; ``sync`` is waited for (its devices'
     queued work) before the clock stops."""
-    t0 = time.perf_counter()
+    t0 = perf_counter()
     try:
         yield
     finally:
         if sync is not None:
             synchronize(sync)
         if meter is not None:
-            meter.add(stage, time.perf_counter() - t0, audio_seconds, items)
+            meter.add(stage, perf_counter() - t0, audio_seconds, items)
+
+
+# --- spans and counters ---------------------------------------------------------
+
+_tracing = 0  # open tracing() blocks
+_lock = threading.Lock()  # guards _tracing and the tables below
+_local = threading.local()  # .stack: this thread's open spans
+_spans: Dict[str, List[float]] = {}  # name -> [calls, seconds, self seconds]
+_counts: Dict[str, int] = {}
+_OFF = contextlib.nullcontext()  # every span while tracing is off
 
 
 @contextlib.contextmanager
-def trace_to(log_dir: str) -> Iterator[torch.profiler.profile]:
-    """Profile the enclosed block with ``torch.profiler`` (CPU, and CUDA
-    when a card is present) and write ``trace.json`` (Chrome/Perfetto
-    format) into ``log_dir``. Yields the profiler, whose ``key_averages()``
-    the caller may read."""
-    activities = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(torch.profiler.ProfilerActivity.CUDA)
-    os.makedirs(log_dir, exist_ok=True)
-    with torch.profiler.profile(activities=activities) as prof:
-        yield prof
-    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
-
-
-# Cumulative wall per labelled region: two perf_counter calls a span.
-_SPANS: Dict[str, float] = {}
-_SPAN_COUNTS: Dict[str, int] = {}
-
-
-@contextlib.contextmanager
-def span(label: str) -> Iterator[None]:
-    t0 = time.perf_counter()
+def tracing() -> Iterator[None]:
+    """Record spans and counters inside the block (blocks may nest, and
+    may be open in several threads)."""
+    global _tracing
+    with _lock:
+        _tracing += 1
     try:
         yield
     finally:
-        dt = time.perf_counter() - t0
-        _SPANS[label] = _SPANS.get(label, 0.0) + dt
-        _SPAN_COUNTS[label] = _SPAN_COUNTS.get(label, 0) + 1
+        with _lock:
+            _tracing -= 1
+
+
+class _Span:
+    __slots__ = ("name", "start", "children", "annotation")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self) -> "_Span":
+        stack = getattr(_local, "stack", None)
+        if stack is None:
+            stack = _local.stack = []
+        stack.append(self)
+        self.children = 0.0
+        self.annotation = None
+        if _autograd_profiler._is_profiler_enabled:
+            self.annotation = record_function(self.name)
+            self.annotation.__enter__()
+        self.start = perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        wall = perf_counter() - self.start
+        if self.annotation is not None:
+            self.annotation.__exit__(*exc)
+        stack = _local.stack
+        stack.pop()
+        if stack:
+            stack[-1].children += wall
+        with _lock:
+            row = _spans.get(self.name)
+            if row is None:
+                row = _spans[self.name] = [0, 0.0, 0.0]
+            row[0] += 1
+            row[1] += wall
+            row[2] += wall - self.children
+
+
+def span(name: str):
+    """A context manager that times the block as ``name`` while tracing is
+    on (see the module's docstring), and the shared no-op otherwise."""
+    if not (_tracing or _autograd_profiler._is_profiler_enabled):
+        return _OFF
+    return _Span(name)
+
+
+def spanned(name: str) -> Callable[[Callable], Callable]:
+    """Decorator: every call of the function is the span ``name``."""
+
+    def decorate(fn: Callable) -> Callable:
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+
+        return call
+
+    return decorate
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name`` while tracing is on."""
+    if _tracing or _autograd_profiler._is_profiler_enabled:
+        with _lock:
+            _counts[name] = _counts.get(name, 0) + n
 
 
 def span_report(reset: bool = False) -> Dict[str, Dict[str, float]]:
-    """{label: {seconds, calls}} accumulated since the process started (or
-    the last reset), largest first."""
-    out = {
-        k: {"seconds": v, "calls": _SPAN_COUNTS.get(k, 0)}
-        for k, v in sorted(_SPANS.items(), key=lambda kv: -kv[1])
-    }
-    if reset:
-        _SPANS.clear()
-        _SPAN_COUNTS.clear()
+    """{name: {calls, seconds, self_seconds}} of the spans recorded since
+    the process started (or the last reset), largest first; a span's self
+    seconds are its wall less that of the spans opened directly inside it
+    on its thread."""
+    with _lock:
+        out = {name: {"calls": int(c), "seconds": s, "self_seconds": own}
+               for name, (c, s, own) in sorted(_spans.items(), key=lambda kv: -kv[1][1])}
+        if reset:
+            _spans.clear()
+    return out
+
+
+def counters(reset: bool = False) -> Dict[str, int]:
+    """{name: total} of the counters recorded since the process started (or
+    the last reset)."""
+    with _lock:
+        out = dict(_counts)
+        if reset:
+            _counts.clear()
     return out

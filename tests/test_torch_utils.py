@@ -2,7 +2,6 @@
 JAX package's, case by case (``tests/test_utils.py``), on the CPU."""
 
 import logging
-import os
 
 import numpy as np
 import pytest
@@ -110,21 +109,22 @@ def test_logger_matches_jax(monkeypatch):
 
 
 def test_spans_match_jax():
+    """Inside ``tracing()`` the port's spans count the calls the JAX package's
+    always-on spans count; outside it they record nothing, which the JAX
+    package's do not offer (parity given up on purpose: the port's spans sit
+    in hot loops and cost two flag reads while off)."""
     utils.span_report(reset=True)
     jax_profiling.span_report(reset=True)
-    for mod in (profiling, jax_profiling):
+    for label in ("upload", "upload", "compile"):
+        with profiling.span(label), jax_profiling.span(label):
+            pass
+    assert utils.span_report() == {}
+    with utils.tracing():
         for label in ("upload", "upload", "compile"):
-            with mod.span(label):
+            with profiling.span(label):
                 pass
     ours, theirs = utils.span_report(), jax_profiling.span_report(reset=True)
     assert {k: v["calls"] for k, v in ours.items()} == {k: v["calls"] for k, v in theirs.items()}
     assert ours["upload"]["calls"] == 2 and ours["upload"]["seconds"] >= 0
+    assert ours["upload"]["self_seconds"] == ours["upload"]["seconds"]  # no child spans
     assert utils.span_report(reset=True) == ours and utils.span_report() == {}
-
-
-def test_trace_to_writes_a_trace(tmp_path):
-    x = torch.randn(64, 64)
-    with utils.trace_to(str(tmp_path / "trace")) as prof:
-        (x @ x).sum()
-    assert os.path.getsize(tmp_path / "trace" / "trace.json") > 0
-    assert any("mm" in e.key for e in prof.key_averages())
