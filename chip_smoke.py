@@ -3,6 +3,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --march [DIR]
     python3 chip_smoke.py --train-kernels [DIR]
+    python3 chip_smoke.py --conv0
 
 Needs one CUDA device and ``nvcc`` (CUDA_HOME or PATH); exits non-zero
 without them. ``--march`` runs the period march kernel's phase alone (below,
@@ -13,7 +14,8 @@ the training kernels' phase and the lanes kernel phase alone (phase 3 from
 the training kernels on) and prints the pre-pass's record, with a SHA-256 of
 its output at each timed shape; with DIR it builds the sources from DIR, so
 that two versions of ``lstm_train.cu`` are compared by time and digest.
-Phases, each of which raises on failure:
+``--conv0`` runs Wav2Vec2's first-block kernel phase alone (phase 8's last
+part) and prints its record. Phases, each of which raises on failure:
 
 1. card: name and power limit (nvidia-smi);
 2. build: every kernel under robust_speech_analysis_framework_tpu_torch/csrc
@@ -88,7 +90,12 @@ Phases, each of which raises on failure:
    then its profile build on the same inputs (outputs bit-equal to the
    timed build's, phase sums within the total): SM clocks and ns of each
    phase of a voiced step and of an unvoiced step, the SM clock measured
-   against the global timer (tools/warp_latency);
+   against the global timer (tools/warp_latency); then Wav2Vec2's first
+   block (conv0_norm_gelu: conv_0, masked channel norm, affine, GELU) at an
+   extraction batch (16 x 80,000 samples, ragged) against its plain version
+   on the card (KERNEL_TOL of max |ref|), one count a call, with its time,
+   the plain version's, cuDNN's conv_0 and the norm chain alone, its bound
+   and a profile of one call (the statistics and main launches);
 9. opensmile (the third main path): a seeded corpus of 16 speech-like
    16 kHz files of 20–60 s (three length buckets) through
    OpenSmileExtractor.extract_arrays on the card, counters reset just
@@ -238,6 +245,7 @@ from robust_speech_analysis_framework_tpu_torch.ops.cuda import _build
 from robust_speech_analysis_framework_tpu_torch.ops.cuda import jitter as march_ops
 from robust_speech_analysis_framework_tpu_torch.ops.cuda import lstm as lstm_ops
 from robust_speech_analysis_framework_tpu_torch.ops.cuda import viterbi as viterbi_ops
+from robust_speech_analysis_framework_tpu_torch.ops.cuda import wav2vec2 as w2v_ops
 from robust_speech_analysis_framework_tpu_torch.serving import Predictor
 from robust_speech_analysis_framework_tpu_torch.train import loops
 
@@ -293,6 +301,11 @@ VITERBI_SOURCE = "robust_speech_analysis_framework_tpu_torch/csrc/viterbi.cu"
 MARCH_SOURCE = "robust_speech_analysis_framework_tpu_torch/csrc/period_march.cu"
 # the JAX package's device march: a lax.while_loop that XLA lowers, not Pallas
 JAX_MARCH = "robust_speech_analysis_framework_tpu/ops/jitter.py:111"
+CONV0_SOURCE = "robust_speech_analysis_framework_tpu_torch/csrc/feature_conv0.cu"
+JAX_CONV0 = "robust_speech_analysis_framework_tpu/models/wav2vec2.py:102"
+# an extraction batch: 16 chunks of 5 s at 16 kHz, ragged as the cell's
+CONV0_SAMPLES = (80_000,) * 9 + (8_000, 43_217, 79_999, 12_345, 65_536, 8_000, 8_000)
+CONV0_CHANNELS = 512
 PALLAS = "robust_speech_analysis_framework_tpu/ops/pallas/lstm.py"
 PALLAS_VITERBI = "robust_speech_analysis_framework_tpu/ops/pallas/viterbi.py"
 
@@ -579,9 +592,12 @@ def serving_phase(dev: torch.device, tmp: str) -> dict:
         if pred.logits.shape != (2,) or not np.isfinite(pred.logits).all():
             raise AssertionError(f"bad logits for {name}")
     log(f"[serving] kernel launches on the main path: {launches}")
-    if launches["lstm_scan_grouped"] != 2 * len(preds) or sum(launches.values()) != 2 * len(preds):
-        raise AssertionError("the serving path did not run K1, and only K1, for every "
-                             "biLSTM layer")
+    n_batches = len(waves) + 1  # an encoder batch a predict(), one for predict_files' files
+    if (launches["lstm_scan_grouped"] != 2 * len(preds)
+            or launches["conv0_norm_gelu"] != n_batches
+            or sum(launches.values()) != 2 * len(preds) + n_batches):
+        raise AssertionError("the serving path did not run K1 for every biLSTM layer and the "
+                             "first-block kernel for every encoder batch, and only them")
 
     cpu_extractor = Wav2Vec2Extractor(
         params={k: v.cpu() for k, v in extractor.model.state_dict().items()},
@@ -999,6 +1015,7 @@ def _counters():
     counters.update({name: getattr(viterbi_ops, name)
                      for name in ("viterbi_forward_costs", "viterbi_path")})
     counters["march_periods"] = march_ops.march_periods
+    counters["conv0_norm_gelu"] = w2v_ops.conv0_norm_gelu
     return counters
 
 
@@ -1662,6 +1679,66 @@ def march_bound_ms(stack: np.ndarray, f0: np.ndarray, nf, counts: np.ndarray,
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def conv0_bound_ms(b: int, n: int, c: int) -> tuple:
+    """Least time for Wav2Vec2's first block: the (B, L) input read and the
+    (B, C, T) output written once; 10 FMAs an output."""
+    t = (n - 10) // 5 + 1
+    return bound_ms(4.0 * (b * n + b * c * t), 20.0 * b * c * t)
+
+
+def conv0_kernel_phase(dev: torch.device) -> dict:
+    """Wav2Vec2's first block (``conv0_norm_gelu``) at an extraction batch
+    against its plain version on the card, with times, the library's parts
+    and a profile of one call."""
+    from robust_speech_analysis_framework_tpu_torch.device import conv1d
+
+    rng = np.random.default_rng(22)
+    b, n, c = len(CONV0_SAMPLES), max(CONV0_SAMPLES), CONV0_CHANNELS
+    samples = np.array(CONV0_SAMPLES)
+    wav = 0.1 * rng.normal(size=(b, n))
+    for i, m in enumerate(samples):
+        wav[i, m:] = 0.0
+    wav[-1] = 0.0  # a batch's padded tail row
+    f32 = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)  # noqa: E731
+    wav, weight = f32(wav), f32(rng.normal(size=(c, 1, 10)) / np.sqrt(10))
+    scale, bias = f32(1 + 0.2 * rng.normal(size=c)), f32(0.1 * rng.normal(size=c))
+    frames = torch.from_numpy(((samples - 10) // 5 + 1).astype(np.int32)).to(dev)
+    args = (wav, weight, scale, bias, frames, 1e-5)
+    with torch.inference_mode():
+        ref = w2v_ops.conv0_norm_gelu_reference(*args)
+        before = w2v_ops.conv0_norm_gelu.launches
+        got = w2v_ops.conv0_norm_gelu(*args)
+        torch.cuda.synchronize()
+        counted = w2v_ops.conv0_norm_gelu.launches - before
+        abs_err = float((got - ref).abs().max())
+        err = abs_err / float(ref.abs().max())
+        same = torch.equal(w2v_ops.conv0_norm_gelu(*args), got)
+        log(f"[conv0] B={b} L={n} C={c} T={got.shape[2]}: kernel vs plain version max|d| / "
+            f"max|ref| = {err:.3e} (tol {KERNEL_TOL}); {counted} count a call; two calls "
+            f"bit-equal: {same}")
+        if not (err <= KERNEL_TOL and counted == 1 and same):
+            raise AssertionError("conv0_norm_gelu disagrees with its plain version")
+        del ref, got
+        ms = cuda_ms(lambda: w2v_ops.conv0_norm_gelu(*args), 50)
+        plain_ms = cuda_ms(lambda: w2v_ops.conv0_norm_gelu_reference(*args), 10)
+
+        conv = lambda: conv1d(wav[:, None, :], weight, None, torch.float32, stride=5)  # noqa: E731
+        h = conv()
+        conv_ms = cuda_ms(conv, 10)
+        chain_ms = cuda_ms(lambda: w2v_ops.channel_norm_gelu(h, frames, scale, bias, 1e-5), 10)
+        del h
+        bound, by = conv0_bound_ms(b, n, c)
+        log(f"[conv0] kernel {ms:.4f} ms ({bound / ms:.1%} of its bound {bound:.4f} ms by {by}); "
+            f"plain version {plain_ms:.3f} ms = cuDNN's conv_0 {conv_ms:.3f} ms + the norm "
+            f"chain {chain_ms:.3f} ms")
+        profile_device("one conv0_norm_gelu call", lambda: w2v_ops.conv0_norm_gelu(*args), 4)
+    torch.cuda.empty_cache()
+    return {"conv0_norm_gelu": {
+        "max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+        "library_ms": conv_ms + chain_ms, "conv_ms": conv_ms, "chain_ms": chain_ms,
+        "shape": f"B={b} L={n} C={c}"}}
+
+
 def march_kernel_phase(dev: torch.device) -> dict:
     """The period march kernel against its plain version on the card and
     against the numpy float64 oracle, at the openSMILE corpus's largest
@@ -2321,7 +2398,7 @@ def w2v_phase(dev: torch.device, tmp: str) -> dict:
     regrouped per participant on the device and adopted by the standard CV
     engine; checked against the float32 download, host aggregation, the
     transfer dtypes' contracts, the embeddings and predict_files. Returns
-    the CV run's launches."""
+    the launches of the extractions and of the CV run."""
     from robust_speech_analysis_framework_tpu_torch.audio import native_io
     from robust_speech_analysis_framework_tpu_torch.audio.io import load_files_mono_16k
     from robust_speech_analysis_framework_tpu_torch.data.aggregate import (
@@ -2382,7 +2459,11 @@ def w2v_phase(dev: torch.device, tmp: str) -> dict:
                 **{k: {"sequence_transfer_dtype": v} for k, v in W2V_TRANSFERS.items()},
                 "bfloat16": {"compute_dtype": "bfloat16"}}
     torch.cuda.reset_peak_memory_stats(dev)
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
     _, first_s = _synced(lambda: extractor.extract_sequences(clips, verbose=False))
+    per_pass = counters["conv0_norm_gelu"].launches  # one an encoder batch
     out, walls = {}, {}
     Wav2Vec2Extractor._download = counting_download
     try:
@@ -2410,6 +2491,15 @@ def w2v_phase(dev: torch.device, tmp: str) -> dict:
         f"{tuple(uploaded.x.shape)}; max|d|={err:.3e} (tol {W2V_RESIDENT_TOL})")
     if not (res.names == list(f32) and err <= W2V_RESIDENT_TOL):
         raise AssertionError("the resident buffer disagrees with the float32 download")
+    extract_launches = {name: fn.launches for name, fn in counters.items()}
+    n_f32 = len(variants) + 1  # the first pass, every float32 variant, the resident pass
+    log(f"[w2v] launches over the extractions: {extract_launches}; expected the first-block "
+        f"kernel {per_pass} times (encoder batches) in each of {n_f32} float32 passes and "
+        f"none in the bfloat16 one, no other kernel")
+    if not (per_pass > 0 and extract_launches["conv0_norm_gelu"] == n_f32 * per_pass
+            == sum(extract_launches.values())):
+        raise AssertionError("the float32 extractions did not run the first-block kernel, and "
+                             "only it, once an encoder batch (or bfloat16 ran it)")
     groups = participant_clips(interview)
     grp, regroup_s = _synced(lambda: res.regroup(groups))
     host = concat_groups(f32, groups)
@@ -2426,7 +2516,6 @@ def w2v_phase(dev: torch.device, tmp: str) -> dict:
     label_of = {r["unique_participant_id"]: r["label"] for r in interview}
     y = np.asarray([label_of[p] == "Patient" for p in grp.names], np.int64)
     X = loops.DeviceCorpus.from_resident(grp).view(np.arange(len(grp)))
-    counters = _counters()
     with _CvProbe() as probe:
         for fn in counters.values():
             fn.launches = 0
@@ -2525,7 +2614,7 @@ def w2v_phase(dev: torch.device, tmp: str) -> dict:
         f"{W2V_BATCH * extractor.chunk_size / SR / (encode_ms / 1e3):.1f} audio-s/s")
     profile_device(f"one encoder batch ({W2V_BATCH} x {extractor.chunk_size} samples, float32)",
                    encode, 14)
-    return launches
+    return {name: extract_launches[name] + launches[name] for name in counters}
 
 
 # --- experiments: the battery end to end ------------------------------------------
@@ -2684,12 +2773,14 @@ def experiments_phase(dev: torch.device, tmp: str) -> dict:
         f"{peak_extract:.3f} GiB")
     if not (extract_launches["viterbi_path"] == extract_launches["viterbi_forward_costs"]
             == n_paths and extract_launches["march_periods"] == n_sub
-            and sum(extract_launches.values()) == 2 * n_paths + n_sub
+            and extract_launches["conv0_norm_gelu"] > 0
+            and sum(extract_launches.values()) == (2 * n_paths + n_sub
+                                                   + extract_launches["conv0_norm_gelu"])
             and len(passes["opensmile"]) == n_sub and len(calls["mshds"]) == 2
             and len(passes["mshds"]) in (10, 13, 16)):
-        raise AssertionError("the extractions did not launch K6/K7, and only them, once per "
-                             "pitch pass or sub-batch, and the period march once per openSMILE "
-                             "sub-batch")
+        raise AssertionError("the extractions did not launch K6/K7 once per pitch pass or "
+                             "sub-batch, the period march once per openSMILE sub-batch and "
+                             "Wav2Vec2's first-block kernel, and only them")
     rows_of = {"reading": len(reading), "interview": len({r["unique_participant_id"]
                                                          for r in interview})}
     for (fs, task), name in exp_mod.TABLE_ARTIFACTS.items():
@@ -3076,7 +3167,9 @@ def multidevice_phase(dev: torch.device, tmp: str) -> dict:
     _md_extractors(dev, grid2)
     launches = {name: fn.launches for name, fn in counters.items()}
     log(f"[multidevice] launches over dryrun_multichip, the lanes and the extractors: {launches}")
-    missing = [n for n, k in launches.items() if n != "lstm_scan" and k == 0]
+    # no Wav2Vec2 runs here: the grid's is in _md_w2v, at mp 2 on cuDNN's per-slice route
+    missing = [n for n, k in launches.items() if n not in ("lstm_scan", "conv0_norm_gelu")
+               and k == 0]
     if missing or launches["lstm_scan"]:
         raise AssertionError(f"the multi-device path did not launch {missing} (or launched K2)")
     _md_step_check(dev, grid)
@@ -3190,6 +3283,7 @@ def run(dev: torch.device, smi: str) -> None:
                                            *(t["max_abs_err"] for t in by_shape.values()))
     records.update(viterbi_kernel_phase(dev))
     records.update(march_kernel_phase(dev))
+    records.update(conv0_kernel_phase(dev))
     flagship_phase(dev)
     with tempfile.TemporaryDirectory() as tmp:
         serving = serving_phase(dev, tmp)
@@ -3216,6 +3310,7 @@ def run(dev: torch.device, smi: str) -> None:
         ("viterbi_forward_costs", VITERBI_SOURCE, f"{PALLAS_VITERBI}:93"),
         ("viterbi_path", VITERBI_SOURCE, f"{PALLAS_VITERBI}:135"),
         ("march_periods", MARCH_SOURCE, JAX_MARCH),
+        ("conv0_norm_gelu", CONV0_SOURCE, JAX_CONV0),
     ):
         rec = records[name]
         by_path = {"serving": serving[name], "training": training[name], "cv": cv[name],
@@ -3232,7 +3327,7 @@ def run(dev: torch.device, smi: str) -> None:
             "on_main_path": name != "lstm_scan",
             **{k: rec[k] for k in ("serving", "praat", "mshds", "sweep_ms", "split", "lanes",
                                    "boundaries_equal", "periods_longest_lane", "us_a_period",
-                                   "phases")
+                                   "phases", "conv_ms", "chain_ms")
                if k in rec},
         })
     log(f"[card] {smi}")
@@ -3280,6 +3375,18 @@ def train_kernels_only(csrc: str = None) -> None:
     print(json.dumps({"lstm_gate_acts_grouped": rec}))
 
 
+def conv0_only() -> None:
+    """``--conv0``: Wav2Vec2's first-block kernel phase alone; prints its record."""
+    t0 = time.perf_counter()
+    _build.load("feature_conv0")
+    log(f"[build] feature_conv0: {time.perf_counter() - t0:.2f} s")
+    for line in ptxas_report(_build.build_logs.get("feature_conv0", "")):
+        log(f"[build] feature_conv0: {line}")
+    torch.backends.cuda.matmul.fp32_precision = "ieee"
+    torch.backends.cudnn.conv.fp32_precision = "ieee"
+    print(json.dumps(conv0_kernel_phase(torch.device("cuda", 0))))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs one CUDA device",
@@ -3292,6 +3399,11 @@ def main() -> int:
     if len(sys.argv) > 1 and sys.argv[1] == "--march":
         log(f"[card] {smi}")
         march_only(sys.argv[2] if len(sys.argv) > 2 else None)
+        return 0
+    if len(sys.argv) > 1 and sys.argv[1] == "--conv0":
+        log(f"[card] {smi}")
+        conv0_only()
+        log(f"[card] {smi}")
         return 0
     if len(sys.argv) > 1 and sys.argv[1] == "--train-kernels":
         log(f"[card] {smi}")

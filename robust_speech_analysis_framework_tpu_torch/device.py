@@ -1,9 +1,10 @@
-"""Device selection for the port's entry points."""
+"""Device selection for the port's entry points, and the precision of its
+convolutions."""
 
 from __future__ import annotations
 
 import contextlib
-from typing import Iterator, Union
+from typing import Iterator, Optional, Union
 
 import torch
 
@@ -48,3 +49,28 @@ def fp32_convs() -> Iterator[None]:
         yield
     finally:
         conv.fp32_precision = saved
+
+
+def conv1d(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
+           cdt: torch.dtype, **kwargs) -> torch.Tensor:
+    """``F.conv1d`` with operands and result in ``cdt`` (Flax's ``Conv(dtype=)``),
+    float32 convolutions in IEEE float32 (:func:`fp32_convs`).
+
+    oneDNN's bfloat16 grouped convolution on the CPU is wrong (torch 2.13:
+    cosine 0.07 against float32 at the positional conv's shape), so a
+    bfloat16 convolution on the CPU takes ATen's own kernel.
+    """
+    args = (x.to(cdt), weight.to(cdt), None if bias is None else bias.to(cdt))
+    avoid_onednn = x.device.type == "cpu" and cdt == torch.bfloat16
+    with fp32_convs(), (_onednn_off() if avoid_onednn else contextlib.nullcontext()):
+        return torch.nn.functional.conv1d(*args, **kwargs)
+
+
+@contextlib.contextmanager
+def _onednn_off() -> Iterator[None]:
+    saved = torch.backends.mkldnn.enabled
+    torch.backends.mkldnn.enabled = False
+    try:
+        yield
+    finally:
+        torch.backends.mkldnn.enabled = saved

@@ -25,7 +25,6 @@ Flax's ``promote_dtype`` does.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 
@@ -34,7 +33,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..device import fp32_convs
+from ..device import conv1d
+from ..ops.cuda.wav2vec2 import (
+    channel_norm_gelu,
+    conv0_norm_gelu,
+    conv0_norm_gelu_reference,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,52 +71,6 @@ class Wav2Vec2Config:
         return t
 
 
-def _conv(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
-          cdt: torch.dtype, **kwargs) -> torch.Tensor:
-    """``F.conv1d`` with operands and result in ``cdt`` (Flax's ``Conv(dtype=)``),
-    float32 convolutions in IEEE float32 (:func:`..device.fp32_convs`).
-
-    oneDNN's bfloat16 grouped convolution on the CPU is wrong (torch 2.13:
-    cosine 0.07 against float32 at the positional conv's shape), so a
-    bfloat16 convolution on the CPU takes ATen's own kernel.
-    """
-    args = (x.to(cdt), weight.to(cdt), None if bias is None else bias.to(cdt))
-    avoid_onednn = x.device.type == "cpu" and cdt == torch.bfloat16
-    with fp32_convs(), (_onednn_off() if avoid_onednn else contextlib.nullcontext()):
-        return F.conv1d(*args, **kwargs)
-
-
-@contextlib.contextmanager
-def _onednn_off():
-    saved = torch.backends.mkldnn.enabled
-    torch.backends.mkldnn.enabled = False
-    try:
-        yield
-    finally:
-        torch.backends.mkldnn.enabled = saved
-
-
-def _masked_channel_norm(
-    x: torch.Tensor, lengths: Optional[torch.Tensor], eps: float
-) -> torch.Tensor:
-    """Per-(sample, channel) normalization over valid time frames.
-
-    ``x`` is (B, C, T). Equivalent to torch GroupNorm(num_groups=C, C) on
-    each unpadded sequence; GroupNorm over the padded tensor would count the
-    padding.
-    """
-    if lengths is None:
-        mean = x.mean(dim=2, keepdim=True)
-        var = x.var(dim=2, unbiased=False, keepdim=True)
-    else:
-        t = torch.arange(x.shape[2], device=x.device)
-        mask = (t[None, None, :] < lengths[:, None, None]).to(x.dtype)
-        n = mask.sum(dim=2, keepdim=True).clamp(min=1.0)
-        mean = (x * mask).sum(dim=2, keepdim=True) / n
-        var = (((x - mean) * mask) ** 2).sum(dim=2, keepdim=True) / n
-    return (x - mean) * torch.rsqrt(var + eps)
-
-
 class FeatureEncoder(nn.Module):
     """Strided conv stack over raw waveform: (B, L) → (B, T, conv_dim[-1])."""
 
@@ -133,18 +91,19 @@ class FeatureEncoder(nn.Module):
     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         cfg = self.config
         cdt = cfg.cdtype
-        h = waveform[:, None, :]  # (B, 1, L)
         cur_lengths = lengths
         for i, (k, s) in enumerate(zip(cfg.conv_kernel, cfg.conv_stride)):
-            h = _conv(h, getattr(self, f"conv_{i}").weight, None, cdt, stride=s)
             if cur_lengths is not None:
                 cur_lengths = torch.div(cur_lengths - k, s, rounding_mode="floor") + 1
-            if i == 0:
-                # in float32: a bfloat16 mean/variance over ~16k frames would
-                # lose the small-variance channels
-                h = _masked_channel_norm(h.float(), cur_lengths, cfg.layer_norm_eps)
-                h = h * self.gn_scale[:, None] + self.gn_bias[:, None]
-            h = F.gelu(h)
+            if i > 0:
+                h = F.gelu(conv1d(h, getattr(self, f"conv_{i}").weight, None, cdt, stride=s))
+            elif cdt == torch.float32:  # the hand-written kernel on the card
+                h = conv0_norm_gelu(waveform, self.conv_0.weight, self.gn_scale, self.gn_bias,
+                                    cur_lengths, cfg.layer_norm_eps, stride=s)
+            else:
+                h = conv0_norm_gelu_reference(waveform, self.conv_0.weight, self.gn_scale,
+                                              self.gn_bias, cur_lengths, cfg.layer_norm_eps,
+                                              stride=s, cdt=cdt)
         return h.float().transpose(1, 2), cur_lengths
 
 
@@ -178,8 +137,8 @@ class PositionalConvEmbedding(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         conv = self.conv
-        h = _conv(x.transpose(1, 2), conv.weight, conv.bias, self.cdtype,
-                  padding=conv.padding, groups=conv.groups).float()
+        h = conv1d(x.transpose(1, 2), conv.weight, conv.bias, self.cdtype,
+                   padding=conv.padding, groups=conv.groups).float()
         # Even kernel + symmetric padding yields one extra frame; drop it.
         return F.gelu(h[:, :, : x.shape[1]]).transpose(1, 2)
 
@@ -357,12 +316,11 @@ class ShardedWav2Vec2:
         cur = lengths
         for i, (k, s) in enumerate(zip(cfg.conv_kernel, cfg.conv_stride)):
             h = self._columns(r, h, f"feature_encoder.conv_{i}.weight", None,
-                              lambda x, wt, _b, s=s: _conv(x, wt, None, cdt, stride=s), 1)
+                              lambda x, wt, _b, s=s: conv1d(x, wt, None, cdt, stride=s), 1)
             cur = torch.div(cur - k, s, rounding_mode="floor") + 1
-            if i == 0:
-                h = _masked_channel_norm(h.float(), cur, cfg.layer_norm_eps)
-                h = h * w("feature_encoder.gn_scale")[:, None] + w("feature_encoder.gn_bias")[:, None]
-            h = F.gelu(h)
+            h = F.gelu(h) if i > 0 else channel_norm_gelu(
+                h, cur, w("feature_encoder.gn_scale"), w("feature_encoder.gn_bias"),
+                cfg.layer_norm_eps)
         feats = h.float().transpose(1, 2)
         normed = F.layer_norm(feats, (feats.shape[-1],), w("feature_projection.norm.weight"),
                               w("feature_projection.norm.bias"), cfg.layer_norm_eps)
@@ -386,15 +344,15 @@ class ShardedWav2Vec2:
         xt = x.transpose(1, 2)
         mp = self.mesh.mp
         if self.spec["pos_conv.conv.weight"] is None or groups % mp:
-            h = _conv(xt, self._whole(r, "pos_conv.conv.weight"), self._whole(r, "pos_conv.conv.bias"),
-                      cdt, padding=pad, groups=groups)
+            h = conv1d(xt, self._whole(r, "pos_conv.conv.weight"),
+                       self._whole(r, "pos_conv.conv.bias"), cdt, padding=pad, groups=groups)
         else:  # a device's output channels are whole groups: it reads their inputs only
             devs = self.mesh.rows[r]
             ins = xt.chunk(mp, 1)
             h = torch.cat([
-                _conv(ins[c].to(dev), self._part(r, c, "pos_conv.conv.weight"),
-                      self._part(r, c, "pos_conv.conv.bias"), cdt, padding=pad,
-                      groups=groups // mp).to(devs[0])
+                conv1d(ins[c].to(dev), self._part(r, c, "pos_conv.conv.weight"),
+                       self._part(r, c, "pos_conv.conv.bias"), cdt, padding=pad,
+                       groups=groups // mp).to(devs[0])
                 for c, dev in enumerate(devs)], 1)
         return F.gelu(h.float()[:, :, : x.shape[1]]).transpose(1, 2)
 

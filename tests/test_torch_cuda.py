@@ -7,6 +7,8 @@ on a machine without it (``tests/conftest.py`` imports JAX, hence
 Without a CUDA device every test here skips.
 """
 
+import zlib
+
 import numpy as np
 import pytest
 import torch
@@ -817,3 +819,127 @@ def test_wav2vec2_extraction_on_card_matches_cpu(cuda_device):
     assert names == list(f32)
     np.testing.assert_allclose(means, np.stack([f32[n].mean(0) for n in names]),
                                rtol=0, atol=1e-5)
+
+
+CONV0_TOL = 1e-5  # of max |ref|: a 10-product conv in another order, exact float64 statistics
+
+
+def _conv0_case(name):
+    """(wav (B, L), weight (C, 1, 10), scale, bias, frames (B,) int32 or
+    None): the extraction cell's batch and the kernel's edges."""
+    rng = np.random.default_rng(zlib.crc32(name.encode()))
+    c = 512
+    weight = rng.normal(size=(c, 1, 10)) / np.sqrt(10)
+    if name == "cell":  # 16 chunks of 80,000 samples: ragged, one at min_samples, a padded row
+        samples = np.array([80_000] * 9 + [8_000, 43_217, 79_999, 12_345, 65_536, 8_000, 8_000])
+    elif name == "length-not-a-multiple-of-5":
+        samples = np.array([20_003, 17_001, 9_999])
+    elif name == "ragged-tile":  # T = 933 = 7 tiles of 128 frames and 37
+        samples = np.array([5 * 932 + 13, 2_222, 4_000])
+    elif name == "low-variance":  # a high-pass channel over smooth rows
+        samples = np.array([32_000, 32_000, 20_000])
+        weight[0, 0] = 0.0
+        weight[0, 0, :2] = (0.3, -0.3)
+    elif name == "edges":  # no valid frame, one frame, more frames than the row has
+        samples = np.array([3, 10, 15, 40_000])
+    elif name == "no-lengths":
+        samples = None
+    n = 48_000 if samples is None else int(samples.max())
+    b = 4 if samples is None else len(samples)
+    wav = 0.1 * rng.normal(size=(b, n))
+    if name == "low-variance":
+        t = np.arange(n) / 16_000
+        wav[:] = 0.5 * np.sin(2 * np.pi * 100 * t) + 0.1
+    frames = None
+    if samples is not None:
+        for i, m in enumerate(samples):
+            wav[i, m:] = 0.0
+        if name == "cell":
+            wav[-1] = 0.0  # the batch's padded tail row
+        frames = torch.from_numpy(((samples - 10) // 5 + 1).astype(np.int32))
+        if name == "edges":
+            frames[-1] = 10**6
+    f32 = lambda a: torch.from_numpy(np.asarray(a, np.float32))  # noqa: E731
+    return (f32(wav), f32(weight), f32(1 + 0.2 * rng.normal(size=c)),
+            f32(0.1 * rng.normal(size=c)), frames)
+
+
+@pytest.mark.parametrize("case", ["cell", "length-not-a-multiple-of-5", "ragged-tile",
+                                  "low-variance", "edges", "no-lengths"])
+def test_conv0_kernel_matches_plain_version(cuda_device, case):
+    """The first block's kernel against its plain version (cuDNN's conv and
+    the masked norm chain) on the card, over the whole output."""
+    from robust_speech_analysis_framework_tpu_torch.ops.cuda import wav2vec2 as w2v_ops
+
+    args = [None if a is None else a.to(cuda_device) for a in _conv0_case(case)]
+    with torch.no_grad():
+        ref = w2v_ops.conv0_norm_gelu_reference(*args, 1e-5)
+        before = w2v_ops.conv0_norm_gelu.launches
+        got = w2v_ops.conv0_norm_gelu(*args, 1e-5)
+        torch.cuda.synchronize()
+    assert w2v_ops.conv0_norm_gelu.launches == before + 1
+    assert got.shape == ref.shape and got.dtype == torch.float32
+    scale = float(ref.abs().max())
+    err = float((got - ref).abs().max())
+    assert err <= CONV0_TOL * scale, (case, err, scale)
+    again = w2v_ops.conv0_norm_gelu(*args, 1e-5)
+    assert torch.equal(again, got)  # no atomics in any sum: the same bits every call
+
+
+def test_conv0_kernel_counts_one_launch_a_call_and_rejects_what_it_does_not_take(cuda_device):
+    from robust_speech_analysis_framework_tpu_torch.ops.cuda import wav2vec2 as w2v_ops
+
+    wav, weight, scale, bias, frames = (a.to(cuda_device) for a in _conv0_case("ragged-tile"))
+    w2v_ops.conv0_norm_gelu.launches = 0
+    with torch.no_grad():
+        for _ in range(3):
+            w2v_ops.conv0_norm_gelu(wav, weight, scale, bias, frames, 1e-5)
+        empty = w2v_ops.conv0_norm_gelu(wav[:0], weight, scale, bias, frames[:0], 1e-5)
+        assert empty.shape == (0, 512, 933)
+        assert w2v_ops.conv0_norm_gelu.launches == 3
+        with pytest.raises(ValueError, match="taps at stride"):
+            w2v_ops.conv0_norm_gelu(wav, weight[:, :, :9], scale, bias, frames, 1e-5)
+        with pytest.raises(TypeError, match="float32"):
+            w2v_ops.conv0_norm_gelu(wav.double(), weight, scale, bias, frames, 1e-5)
+    with pytest.raises(RuntimeError, match="no backward"):
+        w2v_ops.conv0_norm_gelu(wav, weight.requires_grad_(), scale, bias, frames, 1e-5)
+    # 4096 channels' records (256 KiB) do not fit a block's shared memory: the
+    # .cu refuses before any launch and leaves no CUDA error behind
+    wide = torch.ones((4096, 1, 10), device=cuda_device)
+    with torch.no_grad(), pytest.raises(RuntimeError, match="cudaError"):
+        w2v_ops.conv0_norm_gelu(wav, wide, wide[:, 0, 0], wide[:, 0, 0], frames, 1e-5)
+    assert float(torch.ones(8, device=cuda_device).sum()) == 8.0
+    torch.cuda.synchronize()
+    assert w2v_ops.conv0_norm_gelu.launches == 3
+
+
+def test_wav2vec2_model_on_card_matches_cpu_and_runs_the_conv0_kernel(cuda_device):
+    """A Wav2Vec2 model with the base config's 512-channel feature encoder:
+    hidden states on the card against the CPU on valid frames, one kernel
+    call a forward."""
+    from robust_speech_analysis_framework_tpu_torch.models.wav2vec2 import (
+        Wav2Vec2Config,
+        Wav2Vec2Model,
+    )
+    from robust_speech_analysis_framework_tpu_torch.ops.cuda import wav2vec2 as w2v_ops
+
+    torch.manual_seed(0)
+    cfg = Wav2Vec2Config(**dict(W2V_SMALL, conv_dim=(512,) * 7))
+    cpu = Wav2Vec2Model(cfg).eval()
+    card = Wav2Vec2Model(cfg).to(cuda_device).eval()
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(7)
+    lengths = np.array([24_000, 8_000, 17_003], np.int32)
+    wav = (0.1 * rng.normal(size=(3, 24_000))).astype(np.float32)
+    for i, n in enumerate(lengths):
+        wav[i, n:] = 0.0
+    before = w2v_ops.conv0_norm_gelu.launches
+    with torch.no_grad():
+        ref, ref_lens = cpu(torch.from_numpy(wav), torch.from_numpy(lengths))
+        got, got_lens = card(torch.from_numpy(wav).to(cuda_device),
+                             torch.from_numpy(lengths).to(cuda_device))
+    assert w2v_ops.conv0_norm_gelu.launches == before + 1
+    np.testing.assert_array_equal(got_lens.cpu().numpy(), ref_lens.numpy())
+    for i, n in enumerate(ref_lens.tolist()):
+        np.testing.assert_allclose(got[i, :n].cpu().numpy(), ref[i, :n].numpy(), rtol=0,
+                                   atol=1e-4)

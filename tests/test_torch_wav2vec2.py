@@ -200,3 +200,171 @@ def test_from_hf_checkpoint_matches_transformers_and_jax(tmp_path):
         ex.extract_sequences(waves, verbose=False)["one.wav"],
         jax_ex.extract_sequences(waves, verbose=False)["one.wav"], atol=ATOL,
     )
+
+
+def _conv0_inputs(seed, b=3, n=23_004, c=16):
+    rng = np.random.default_rng(seed)
+    wav = (0.1 * rng.normal(size=(b, n))).astype(np.float32)
+    samples = np.array([n, 8_000, 12_347][:b])
+    for i, m in enumerate(samples):
+        wav[i, m:] = 0.0
+    f32 = lambda a: torch.from_numpy(np.asarray(a, np.float32))  # noqa: E731
+    return (f32(wav), torch.from_numpy(((samples - 10) // 5 + 1).astype(np.int32)),
+            f32(rng.normal(size=(c, 1, 10)) / np.sqrt(10)), f32(1 + 0.2 * rng.normal(size=c)),
+            f32(0.1 * rng.normal(size=c)))
+
+
+@pytest.mark.parametrize("masked", [True, False], ids=["lengths", "no-lengths"])
+def test_conv0_plain_version_equals_the_former_inline_block(masked):
+    """The first block's plain version, and the wrapper on CPU tensors, give
+    the encoder's former inline code bit for bit."""
+    from robust_speech_analysis_framework_tpu_torch.device import conv1d
+    from robust_speech_analysis_framework_tpu_torch.ops.cuda.wav2vec2 import (
+        conv0_norm_gelu,
+        conv0_norm_gelu_reference,
+    )
+
+    wav, frames, weight, scale, bias = _conv0_inputs(8)
+    lengths = frames if masked else None
+    # the feature encoder's first block as it was written inline
+    h = conv1d(wav[:, None, :], weight, None, torch.float32, stride=5).float()
+    if lengths is None:
+        mean = h.mean(dim=2, keepdim=True)
+        var = h.var(dim=2, unbiased=False, keepdim=True)
+    else:
+        t = torch.arange(h.shape[2])
+        mask = (t[None, None, :] < lengths[:, None, None]).to(h.dtype)
+        n = mask.sum(dim=2, keepdim=True).clamp(min=1.0)
+        mean = (h * mask).sum(dim=2, keepdim=True) / n
+        var = (((h - mean) * mask) ** 2).sum(dim=2, keepdim=True) / n
+    h = (h - mean) * torch.rsqrt(var + 1e-5)
+    former = torch.nn.functional.gelu(h * scale[:, None] + bias[:, None])
+    assert torch.equal(conv0_norm_gelu_reference(wav, weight, scale, bias, lengths, 1e-5), former)
+    assert torch.equal(conv0_norm_gelu(wav, weight, scale, bias, lengths, 1e-5), former)
+
+
+@pytest.mark.parametrize("masked", [True, False], ids=["lengths", "no-lengths"])
+def test_conv0_patch_moments_give_the_masked_norm_statistics(masked):
+    """The kernel's statistics, in float64 on the CPU: the patches' mean and
+    centred covariance by segment of ``SEGMENT_FRAMES`` frames, merged in
+    order by Chan's formula, give each channel's masked mean and variance of
+    the conv's output (w·m, wᵀSw)."""
+    SEGMENT_FRAMES = 2048  # csrc/feature_conv0.cu: kSegFrames
+
+    wav, frames, weight, _, _ = _conv0_inputs(9, n=3 * SEGMENT_FRAMES * 5 + 777)
+    x = wav.double().numpy()
+    w = weight[:, 0].double().numpy()
+    t_all = (x.shape[1] - 10) // 5 + 1
+    for b in range(x.shape[0]):
+        n = int(frames[b]) if masked else t_all
+        count, mean, m2 = 0, np.zeros(10), np.zeros((10, 10))
+        for t0 in range(0, t_all, SEGMENT_FRAMES):
+            ns = max(0, min(SEGMENT_FRAMES, n - t0))
+            if ns == 0:
+                continue
+            p = x[b][(t0 + np.arange(ns))[:, None] * 5 + np.arange(10)]
+            m = p.mean(0)
+            d = p - m
+            delta = m - mean
+            f = ns / (count + ns)
+            m2 = m2 + d.T @ d + np.outer(delta, delta) * count * f
+            mean, count = mean + delta * f, count + ns
+        conv = np.stack([x[b][t * 5: t * 5 + 10] @ w.T for t in range(n)])  # (n, C)
+        np.testing.assert_allclose(w @ mean, conv.mean(0), rtol=0, atol=1e-12)
+        np.testing.assert_allclose(np.einsum("cj,jk,ck->c", w, m2 / count, w), conv.var(0),
+                                   rtol=1e-10, atol=0)
+
+
+def test_conv0_wrapper_guards():
+    from robust_speech_analysis_framework_tpu_torch.ops.cuda.wav2vec2 import conv0_norm_gelu
+
+    wav, frames, weight, scale, bias = _conv0_inputs(10)
+    with pytest.raises(ValueError, match="shorter than"):
+        conv0_norm_gelu(wav[:, :9], weight, scale, bias, None, 1e-5)
+    with pytest.raises(ValueError, match="gn_scale"):
+        conv0_norm_gelu(wav, weight, scale[:3], bias, frames, 1e-5)
+    with pytest.raises(ValueError, match="lengths"):
+        conv0_norm_gelu(wav, weight, scale, bias, frames[:2], 1e-5)
+    with pytest.raises(ValueError, match=r"\(C, 1, K\)"):
+        conv0_norm_gelu(wav, weight[:, 0], scale, bias, frames, 1e-5)
+
+
+def test_conv0_dispatch_keeps_cpu_tensors_off_the_build(monkeypatch, port_model):
+    """On CPU tensors the wrapper, and the float32 encoder through it, never
+    reach the CUDA build or count a launch."""
+    from robust_speech_analysis_framework_tpu_torch.ops.cuda import _build
+    from robust_speech_analysis_framework_tpu_torch.ops.cuda import wav2vec2 as w2v_ops
+
+    def no_build(*args, **kwargs):
+        raise AssertionError("a CPU tensor reached the CUDA build")
+
+    monkeypatch.setattr(_build, "load", no_build)
+    monkeypatch.setattr(_build, "call", no_build)
+    monkeypatch.setattr(w2v_ops, "_call", no_build)
+    monkeypatch.setattr(w2v_ops, "_load", no_build)
+    before = w2v_ops.conv0_norm_gelu.launches
+    wav, frames, weight, scale, bias = _conv0_inputs(11)
+    w2v_ops.conv0_norm_gelu(wav, weight, scale, bias, frames, 1e-5)
+    with torch.no_grad():
+        port_model(wav[:, :8000], torch.tensor([8000, 6000, 4000], dtype=torch.int32))
+    assert w2v_ops.conv0_norm_gelu.launches == before
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_feature_encoder_routes_its_first_block_by_compute_dtype(monkeypatch, compute_dtype):
+    """float32 runs the first block through ``conv0_norm_gelu`` (the kernel
+    on the card) and the other convs through ``conv1d``; the bfloat16 preset
+    runs its first block's plain version, its conv in bfloat16, and the
+    other convs through ``conv1d``."""
+    from robust_speech_analysis_framework_tpu_torch.models import wav2vec2 as w2v_model
+
+    calls = {"conv": 0, "block": 0, "plain": []}
+    conv, block, plain = (w2v_model.conv1d, w2v_model.conv0_norm_gelu,
+                          w2v_model.conv0_norm_gelu_reference)
+
+    def spy_conv(*args, **kwargs):
+        calls["conv"] += 1
+        return conv(*args, **kwargs)
+
+    def spy_block(*args, **kwargs):
+        calls["block"] += 1
+        return block(*args, **kwargs)
+
+    def spy_plain(*args, **kwargs):
+        calls["plain"].append(kwargs["cdt"])
+        return plain(*args, **kwargs)
+
+    monkeypatch.setattr(w2v_model, "conv1d", spy_conv)
+    monkeypatch.setattr(w2v_model, "conv0_norm_gelu", spy_block)
+    monkeypatch.setattr(w2v_model, "conv0_norm_gelu_reference", spy_plain)
+    torch.manual_seed(0)
+    encoder = w2v_model.FeatureEncoder(Wav2Vec2Config(**SMALL, compute_dtype=compute_dtype))
+    wav = torch.from_numpy((0.1 * np.random.default_rng(12).normal(size=(2, 6000)))
+                           .astype(np.float32))
+    with torch.no_grad():
+        feats, lens = encoder(wav, torch.tensor([6000, 4100], dtype=torch.int32))
+    assert feats.shape == (2, Wav2Vec2Config(**SMALL).output_length(6000), 16)
+    assert calls == ({"conv": 6, "block": 1, "plain": []} if compute_dtype == "float32"
+                     else {"conv": 6, "block": 0, "plain": [torch.bfloat16]})
+
+
+@pytest.mark.parametrize("masked", [True, False], ids=["lengths", "no-lengths"])
+def test_conv0_plain_version_in_bfloat16_equals_the_former_inline_block(masked):
+    """The bfloat16 preset's first block, now the plain version with its
+    conv in bfloat16, gives the encoder's former inline code bit for bit:
+    the conv's output rounded to bfloat16, then the norm in float32."""
+    from robust_speech_analysis_framework_tpu_torch.device import conv1d
+    from robust_speech_analysis_framework_tpu_torch.ops.cuda.wav2vec2 import (
+        conv0_norm_gelu_reference,
+        masked_channel_norm,
+    )
+
+    wav, frames, weight, scale, bias = _conv0_inputs(13)
+    lengths = frames if masked else None
+    h = conv1d(wav[:, None, :], weight, None, torch.bfloat16, stride=5)
+    assert h.dtype == torch.bfloat16
+    h = masked_channel_norm(h.float(), lengths, 1e-5)
+    former = torch.nn.functional.gelu(h * scale[:, None] + bias[:, None])
+    got = conv0_norm_gelu_reference(wav, weight, scale, bias, lengths, 1e-5, cdt=torch.bfloat16)
+    assert got.dtype == torch.float32
+    assert torch.equal(got, former)
