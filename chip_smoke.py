@@ -4,6 +4,7 @@
     python3 chip_smoke.py --march [DIR]
     python3 chip_smoke.py --train-kernels [DIR]
     python3 chip_smoke.py --conv0
+    python3 chip_smoke.py --wavlm
 
 Needs one CUDA device and ``nvcc`` (CUDA_HOME or PATH); exits non-zero
 without them. ``--march`` runs the period march kernel's phase alone (below,
@@ -14,8 +15,11 @@ the training kernels' phase and the lanes kernel phase alone (phase 3 from
 the training kernels on) and prints the pre-pass's record, with a SHA-256 of
 its output at each timed shape; with DIR it builds the sources from DIR, so
 that two versions of ``lstm_train.cu`` are compared by time and digest.
-``--conv0`` runs Wav2Vec2's first-block kernel phase alone (phase 8's last
-part) and prints its record. Phases, each of which raises on failure:
+``--conv0`` runs Wav2Vec2's first-block kernel phase alone (phase 8's
+first-block part) and prints its record. ``--wavlm`` runs WavLM's parts
+alone (phase 8's last part and phase 15) and prints the biased softmax's
+record with its launches in phase 15. Phases, each of which raises on
+failure:
 
 1. card: name and power limit (nvidia-smi);
 2. build: every kernel under robust_speech_analysis_framework_tpu_torch/csrc
@@ -95,7 +99,14 @@ part) and prints its record. Phases, each of which raises on failure:
    extraction batch (16 x 80,000 samples, ragged) against its plain version
    on the card (KERNEL_TOL of max |ref|), one count a call, with its time,
    the plain version's, cuDNN's conv_0 and the norm chain alone, its bound
-   and a profile of one call (the statistics and main launches);
+   and a profile of one call (the statistics and main launches); then
+   WavLM's gated relative-position softmax (relpos_softmax) at an
+   extraction batch of 16 s chunks (B=16, 16 heads, T=799, ragged key
+   lengths) against its plain version (KERNEL_TOL), one count a call, two
+   calls bit-equal, its time, the plain version's, its bound over the real
+   pairs and over every pair, and a profile of one call; then one
+   WavLM-Large encoder batch of 16 × 16 s (device ms, memory peak, one
+   launch a layer, a profile by kernel);
 9. opensmile (the third main path): a seeded corpus of 16 speech-like
    16 kHz files of 20–60 s (three length buckets) through
    OpenSmileExtractor.extract_arrays on the card, counters reset just
@@ -192,6 +203,12 @@ part) and prints its record. Phases, each of which raises on failure:
     ``WORLD_SIZE=1`` and the multi-host helpers over an NCCL world of one
     opened on a ``file://`` store.
 
+15. wavlm (WavLM-Large extraction, the WavLM cell's path): a full-width
+    random-init ``WavLMConfig`` extractor over six speech-like reading
+    recordings of 9.5–88 s in 16 s chunks (see ``wavlm_phase``), counters
+    reset just before and read just after its three entry points (the
+    biased softmax once a layer of each encoder batch, nothing else).
+
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.
 """
@@ -246,8 +263,11 @@ from robust_speech_analysis_framework_tpu_torch.ops.cuda import jitter as march_
 from robust_speech_analysis_framework_tpu_torch.ops.cuda import lstm as lstm_ops
 from robust_speech_analysis_framework_tpu_torch.ops.cuda import viterbi as viterbi_ops
 from robust_speech_analysis_framework_tpu_torch.ops.cuda import wav2vec2 as w2v_ops
+from robust_speech_analysis_framework_tpu_torch.ops.cuda import wavlm as wavlm_ops
 from robust_speech_analysis_framework_tpu_torch.serving import Predictor
 from robust_speech_analysis_framework_tpu_torch.train import loops
+
+from port_bench import wavlm_counts
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_FP32_FLOPS = 67e12
@@ -303,6 +323,8 @@ MARCH_SOURCE = "robust_speech_analysis_framework_tpu_torch/csrc/period_march.cu"
 JAX_MARCH = "robust_speech_analysis_framework_tpu/ops/jitter.py:111"
 CONV0_SOURCE = "robust_speech_analysis_framework_tpu_torch/csrc/feature_conv0.cu"
 JAX_CONV0 = "robust_speech_analysis_framework_tpu/models/wav2vec2.py:102"
+WAVLM_SOURCE = "robust_speech_analysis_framework_tpu_torch/csrc/wavlm_relpos.cu"
+JAX_WAVLM = "none: the JAX package has no WavLM"
 # an extraction batch: 16 chunks of 5 s at 16 kHz, ragged as the cell's
 CONV0_SAMPLES = (80_000,) * 9 + (8_000, 43_217, 79_999, 12_345, 65_536, 8_000, 8_000)
 CONV0_CHANNELS = 512
@@ -1016,6 +1038,7 @@ def _counters():
                      for name in ("viterbi_forward_costs", "viterbi_path")})
     counters["march_periods"] = march_ops.march_periods
     counters["conv0_norm_gelu"] = w2v_ops.conv0_norm_gelu
+    counters["relpos_softmax"] = wavlm_ops.relpos_softmax
     return counters
 
 
@@ -1737,6 +1760,101 @@ def conv0_kernel_phase(dev: torch.device) -> dict:
         "max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
         "library_ms": conv_ms + chain_ms, "conv_ms": conv_ms, "chain_ms": chain_ms,
         "shape": f"B={b} L={n} C={c}"}}
+
+
+WAVLM_SHAPE = (16, 16, 799)  # B, heads, T: an extraction batch of 16 s chunks
+WAVLM_FRAMES = (799,) * 12 + (649, 400, 150, 24)  # valid keys a row: full and last chunks
+
+
+def relpos_bound_ms(frames, heads: int) -> float:
+    """Least time for one call of WavLM's relative-position softmax over
+    rows of ``frames`` real frames: the benchmark's bound
+    (``port_bench.wavlm_counts``) for one layer, by bytes."""
+    return wavlm_counts.relpos_softmax_bound_ms({"num_heads": heads, "num_layers": 1}, frames)
+
+
+def wavlm_kernel_phase(dev: torch.device) -> dict:
+    """WavLM's relative-position softmax at an extraction batch's shape
+    against its plain version, with times and bound, then one WavLM-Large
+    encoder batch of 16 × 16 s: device ms, memory peak, the kernel's
+    launches, and a profile by kernel."""
+    from robust_speech_analysis_framework_tpu_torch.models.init import init_weights_
+    from robust_speech_analysis_framework_tpu_torch.models.wavlm import (
+        WavLMConfig, WavLMModel, relative_position_buckets)
+
+    b, h, t = WAVLM_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(23)
+    scores = 4.0 * torch.randn(b, h, t, t, generator=gen, device=dev)
+    gates = 1.0 + torch.rand(b, h, t, generator=gen, device=dev)
+    table = torch.randn(320, h, generator=gen, device=dev)
+    buckets = relative_position_buckets(torch.arange(-(t - 1), t), 320, 800).to(
+        torch.int32).to(dev)
+    lengths = torch.tensor(WAVLM_FRAMES, dtype=torch.int32, device=dev)
+    args = (gates, table, buckets, lengths)
+    with torch.inference_mode():
+        ref = wavlm_ops.relpos_softmax_reference(scores, *args)
+        work = scores.clone()
+        before = wavlm_ops.relpos_softmax.launches
+        got = wavlm_ops.relpos_softmax(work, *args)
+        torch.cuda.synchronize()
+        counted = wavlm_ops.relpos_softmax.launches - before
+        abs_err = float((got - ref).abs().max())
+        again = wavlm_ops.relpos_softmax(scores.clone(), *args)
+        same = torch.equal(again, got)
+        log(f"[wavlm] B={b} H={h} T={t}: kernel vs plain version max|d| = {abs_err:.3e} "
+            f"(tol {KERNEL_TOL}); {counted} count a call; two calls bit-equal: {same}")
+        if not (abs_err <= KERNEL_TOL and counted == 1 and same):
+            raise AssertionError("relpos_softmax disagrees with its plain version")
+        del ref, again
+        # in place: each timed call overwrites the same buffer, as the encoder's does
+        ms = cuda_ms(lambda: wavlm_ops.relpos_softmax(work, *args), 50)
+        plain_ms = cuda_ms(lambda: wavlm_ops.relpos_softmax_reference(scores, *args), 5)
+        bound, by = relpos_bound_ms(WAVLM_FRAMES, h), "bytes"
+        full = relpos_bound_ms((t,) * b, h)
+        log(f"[wavlm] kernel {ms:.4f} ms ({bound / ms:.1%} of its bound {bound:.4f} ms by {by} "
+            f"over real pairs; {full / ms:.1%} of {full:.4f} ms over every pair); plain "
+            f"version {plain_ms:.3f} ms")
+        profile_device("one relpos_softmax call", lambda: wavlm_ops.relpos_softmax(work, *args), 4)
+        del scores, work, got
+    torch.cuda.empty_cache()
+
+    model = WavLMModel(WavLMConfig())
+    init_weights_(model, torch.Generator().manual_seed(0))
+    model = model.to(dev).eval()
+    rng = np.random.default_rng(23)
+    samples = np.array([256000] * 12 + [208000, 128000, 48000, 8000])
+    wav = torch.from_numpy((0.1 * rng.normal(size=(len(samples), 256000))).astype(np.float32))
+    for i, n in enumerate(samples):
+        wav[i, n:] = 0.0
+    wav, n_samples = wav.to(dev), torch.from_numpy(samples).to(dev)
+
+    def encode():
+        with torch.inference_mode():
+            return model(wav, n_samples)
+
+    encode()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = wavlm_ops.relpos_softmax.launches
+    hidden, frames = encode()
+    torch.cuda.synchronize()
+    launches = wavlm_ops.relpos_softmax.launches - before
+    peak = torch.cuda.max_memory_allocated(dev)
+    finite = bool(torch.isfinite(hidden).all())
+    del hidden
+    batch_ms = cuda_ms(encode, 3)
+    log(f"[wavlm] encoder batch 16 x 256,000 (WavLM-Large, fp32): {batch_ms:.2f} ms, memory "
+        f"peak {peak / 1e9:.2f} GB, {launches} kernel launches ({model.config.num_layers} "
+        f"layers), frames {frames.tolist()}, finite {finite}")
+    if launches != model.config.num_layers or not finite:
+        raise AssertionError("the encoder did not run the kernel once a layer")
+    profile_device("one WavLM-Large encoder batch", encode, 14)
+    del model
+    torch.cuda.empty_cache()
+    return {"relpos_softmax": {
+        "max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+        "library_ms": None, "bound_every_pair_ms": full, "shape": f"B={b} H={h} T={t}",
+        "encoder_batch_ms": batch_ms, "encoder_peak_bytes": peak}}
 
 
 def march_kernel_phase(dev: torch.device) -> dict:
@@ -2617,6 +2735,79 @@ def w2v_phase(dev: torch.device, tmp: str) -> dict:
     return {name: extract_launches[name] + launches[name] for name in counters}
 
 
+# --- wavlm: WavLM-Large extraction ------------------------------------------------
+
+# reading recordings in 16 s chunks every 15 s: 21 chunks, two encoder batches
+# of 16, short last chunks (13, 10, 7, 7, 5 and 9.5 s)
+WAVLM_READING_S = (88.0, 70.0, 52.0, 37.0, 20.0, 9.5)
+
+
+def wavlm_phase(dev: torch.device) -> dict:
+    """WavLM-Large extraction (the WavLM cell's path): a full-width
+    random-init ``WavLMConfig`` extractor (16 s chunks every 15 s, batches
+    of 16, float32) over six speech-like reading recordings through
+    ``extract_sequences``, ``extract_sequences_resident`` and
+    ``extract_embeddings_arrays``; counters reset just before and read just
+    after (the biased softmax once a layer of each encoder batch, nothing
+    else); (T, 1024) rows; the resident buffer and the embeddings against
+    the sequences; walls and peak memory. Returns the launches."""
+    from robust_speech_analysis_framework_tpu_torch.models.wavlm import WavLMConfig
+
+    config = WavLMConfig()
+    extractor = Wav2Vec2Extractor(config=config, chunk_seconds=16.0, overlap_seconds=1.0,
+                                  batch_size=W2V_BATCH, allow_random_init=True, seed=0,
+                                  device=dev)
+    waves = {f"r{i}": _speech(sec, 100 + 20 * i, 40 + i) for i, sec in enumerate(WAVLM_READING_S)}
+    audio_s = sum(WAVLM_READING_S)
+    _, first_s = _synced(lambda: extractor.extract_sequences(waves, verbose=False))
+    encodes = [0]
+    real_encode = extractor._encode
+
+    def counting_encode(*args):
+        encodes[0] += 1
+        return real_encode(*args)
+
+    counters = _counters()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for fn in counters.values():
+        fn.launches = 0
+    extractor._encode = counting_encode
+    try:
+        seqs, seq_s = _synced(lambda: extractor.extract_sequences(waves, verbose=False))
+        res, res_s = _synced(lambda: extractor.extract_sequences_resident(waves, verbose=False))
+        (names, means), emb_s = _synced(lambda: extractor.extract_embeddings_arrays(
+            waves, verbose=False))
+    finally:
+        del extractor._encode  # the bound method again
+    launches = {name: fn.launches for name, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated(dev)
+    log(f"[wavlm] {len(waves)} reading recordings ({audio_s:.1f} audio-s) in 16 s chunks: "
+        f"extract_sequences {seq_s:.3f} s ({audio_s / seq_s:.1f} audio-s/s; first, cold "
+        f"{first_s:.3f} s), extract_sequences_resident {res_s:.3f} s, "
+        f"extract_embeddings_arrays {emb_s:.3f} s; peak memory {peak / 1e9:.2f} GB")
+    log(f"[wavlm] launches over the three extractions: {launches}; expected the biased "
+        f"softmax {config.num_layers} times in each of {encodes[0]} encoder batches, no "
+        f"other kernel")
+    if not (encodes[0] > 0 and launches["relpos_softmax"] == config.num_layers * encodes[0]
+            == sum(launches.values())):
+        raise AssertionError("the WavLM extractions did not run the biased softmax, and only "
+                             "it, once a layer of each encoder batch")
+    shapes = {n: seqs[n].shape for n in waves}
+    frames = {n: int(res.lengths[res.row(n)]) for n in waves}
+    res_err = max(float(np.abs(res[n] - seqs[n]).max()) for n in waves)
+    emb_err = float(np.abs(means - np.stack([seqs[n].mean(0) for n in names])).max())
+    log(f"[wavlm] sequences {shapes}; resident rows vs the sequences max|d|={res_err:.3e} (tol "
+        f"{W2V_RESIDENT_TOL}); embeddings {means.shape} vs the sequences' means "
+        f"max|d|={emb_err:.3e} (tol {W2V_EMB_TOL})")
+    if not (all(shapes[n] == (frames[n], config.hidden_size) for n in waves)
+            and all(np.isfinite(seqs[n]).all() for n in waves) and names == list(waves)
+            and res_err <= W2V_RESIDENT_TOL and emb_err <= W2V_EMB_TOL):
+        raise AssertionError("the WavLM entry points disagree with one another")
+    del extractor, res
+    torch.cuda.empty_cache()
+    return launches
+
+
 # --- experiments: the battery end to end ------------------------------------------
 
 # The CNN-LSTM half's depth, cut from the JAX package's defaults (5 folds,
@@ -3167,9 +3358,10 @@ def multidevice_phase(dev: torch.device, tmp: str) -> dict:
     _md_extractors(dev, grid2)
     launches = {name: fn.launches for name, fn in counters.items()}
     log(f"[multidevice] launches over dryrun_multichip, the lanes and the extractors: {launches}")
-    # no Wav2Vec2 runs here: the grid's is in _md_w2v, at mp 2 on cuDNN's per-slice route
-    missing = [n for n, k in launches.items() if n not in ("lstm_scan", "conv0_norm_gelu")
-               and k == 0]
+    # no Wav2Vec2 runs here: the grid's is in _md_w2v, at mp 2 on cuDNN's per-slice route;
+    # no WavLM either
+    missing = [n for n, k in launches.items()
+               if n not in ("lstm_scan", "conv0_norm_gelu", "relpos_softmax") and k == 0]
     if missing or launches["lstm_scan"]:
         raise AssertionError(f"the multi-device path did not launch {missing} (or launched K2)")
     _md_step_check(dev, grid)
@@ -3284,6 +3476,7 @@ def run(dev: torch.device, smi: str) -> None:
     records.update(viterbi_kernel_phase(dev))
     records.update(march_kernel_phase(dev))
     records.update(conv0_kernel_phase(dev))
+    records.update(wavlm_kernel_phase(dev))
     flagship_phase(dev)
     with tempfile.TemporaryDirectory() as tmp:
         serving = serving_phase(dev, tmp)
@@ -3292,6 +3485,7 @@ def run(dev: torch.device, smi: str) -> None:
     with tempfile.TemporaryDirectory() as tmp:
         w2v = w2v_phase(dev, tmp)
         experiments = experiments_phase(dev, tmp)
+    wavlm = wavlm_phase(dev)
     parity_phase(dev)
     with tempfile.TemporaryDirectory() as tmp:
         checkpoint_phase(dev, tmp)
@@ -3311,12 +3505,13 @@ def run(dev: torch.device, smi: str) -> None:
         ("viterbi_path", VITERBI_SOURCE, f"{PALLAS_VITERBI}:135"),
         ("march_periods", MARCH_SOURCE, JAX_MARCH),
         ("conv0_norm_gelu", CONV0_SOURCE, JAX_CONV0),
+        ("relpos_softmax", WAVLM_SOURCE, JAX_WAVLM),
     ):
         rec = records[name]
         by_path = {"serving": serving[name], "training": training[name], "cv": cv[name],
                    "cv-lanes": cv_lanes[name], "opensmile": opensmile[name],
                    "mshds": mshds[name], "w2v": w2v[name], "experiments": experiments[name],
-                   "multidevice": multidevice[name]}
+                   "multidevice": multidevice[name], "wavlm": wavlm[name]}
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(by_path.values()),
@@ -3327,7 +3522,8 @@ def run(dev: torch.device, smi: str) -> None:
             "on_main_path": name != "lstm_scan",
             **{k: rec[k] for k in ("serving", "praat", "mshds", "sweep_ms", "split", "lanes",
                                    "boundaries_equal", "periods_longest_lane", "us_a_period",
-                                   "phases", "conv_ms", "chain_ms")
+                                   "phases", "conv_ms", "chain_ms", "bound_every_pair_ms",
+                                   "encoder_batch_ms", "encoder_peak_bytes")
                if k in rec},
         })
     log(f"[card] {smi}")
@@ -3387,6 +3583,23 @@ def conv0_only() -> None:
     print(json.dumps(conv0_kernel_phase(torch.device("cuda", 0))))
 
 
+def wavlm_only() -> None:
+    """``--wavlm``: WavLM's kernel and encoder batch phase and its extraction
+    path (phase 8's last part and phase 15 alone); prints the kernel's
+    record with the path's launches."""
+    t0 = time.perf_counter()
+    _build.load("wavlm_relpos")
+    log(f"[build] wavlm_relpos: {time.perf_counter() - t0:.2f} s")
+    for line in ptxas_report(_build.build_logs.get("wavlm_relpos", "")):
+        log(f"[build] wavlm_relpos: {line}")
+    torch.backends.cuda.matmul.fp32_precision = "ieee"
+    torch.backends.cudnn.conv.fp32_precision = "ieee"
+    dev = torch.device("cuda", 0)
+    record = wavlm_kernel_phase(dev)
+    record["relpos_softmax"]["launches_by_path"] = {"wavlm": wavlm_phase(dev)["relpos_softmax"]}
+    print(json.dumps(record))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs one CUDA device",
@@ -3403,6 +3616,11 @@ def main() -> int:
     if len(sys.argv) > 1 and sys.argv[1] == "--conv0":
         log(f"[card] {smi}")
         conv0_only()
+        log(f"[card] {smi}")
+        return 0
+    if len(sys.argv) > 1 and sys.argv[1] == "--wavlm":
+        log(f"[card] {smi}")
+        wavlm_only()
         log(f"[card] {smi}")
         return 0
     if len(sys.argv) > 1 and sys.argv[1] == "--train-kernels":

@@ -33,6 +33,9 @@ and the download of batch k−1 on another copy stream, from and into pinned
 host memory, ordered by CUDA events (the JAX package overlaps the same
 stages with ``max_inflight`` dispatches and a fetch thread pool). A card
 error propagates: there is no retry and no host fallback.
+
+A ``WavLMConfig`` (``models/wavlm.py``) runs WavLM-Large through the same
+chunking, batches, pipeline and entry points, in float32.
 """
 
 from __future__ import annotations
@@ -51,6 +54,8 @@ from ..device import DeviceLike, resolve_device
 from ..models.init import init_weights_
 from ..models.wav2vec2 import (ShardedWav2Vec2, Wav2Vec2Config, Wav2Vec2Model,
                                port_hf_state_dict)
+from ..models.wavlm import (WavLMConfig, WavLMModel, port_hf_wavlm_state_dict,
+                            wavlm_config_from_hf)
 from ..parallel.mesh import DeviceGrid
 from ..train.loops import _aligned_length
 from ..utils.profiling import count, span, spanned
@@ -146,9 +151,13 @@ def _copy_frames(dst: torch.Tensor, src: torch.Tensor, dst_rows: np.ndarray,
 class Wav2Vec2Extractor:
     """Reusable extractor owning the encoder and its weights.
 
-    ``params`` is a state dict for :class:`Wav2Vec2Model` (e.g. from
-    :func:`..models.weights.wav2vec2_state_dict_from_flat` or
-    :func:`..models.wav2vec2.port_hf_state_dict`). Without weights it raises
+    The encoder is the one ``config``'s class names: Wav2Vec2 for a
+    ``Wav2Vec2Config``, WavLM for a
+    :class:`..models.wavlm.WavLMConfig` (float32 only; a ``mesh`` with
+    mp > 1 raises for it). ``params`` is a state dict for that encoder (e.g.
+    from :func:`..models.weights.wav2vec2_state_dict_from_flat`,
+    :func:`..models.wav2vec2.port_hf_state_dict` or
+    :func:`..models.wavlm.port_hf_wavlm_state_dict`). Without weights it raises
     unless ``allow_random_init=True`` (tests / throughput runs), in which case
     the weights are drawn from ``torch.Generator().manual_seed(seed)``, a
     warning is emitted and ``.pretrained`` is False.
@@ -190,6 +199,9 @@ class Wav2Vec2Extractor:
     ):
         if mesh is not None and batch_size % mesh.dp != 0:
             raise ValueError(f"batch_size {batch_size} not divisible by dp={mesh.dp}")
+        if mesh is not None and mesh.mp > 1 and isinstance(config, WavLMConfig):
+            raise ValueError(f"WavLM is not split over mp > 1 devices (mp={mesh.mp}): "
+                             "give it a mesh with mp=1, or none")
         self.mesh = mesh
         self.device = resolve_device(device) if mesh is None else mesh.lead
         if compute_dtype is not None and compute_dtype != config.compute_dtype:
@@ -217,7 +229,7 @@ class Wav2Vec2Extractor:
         # Applied PER CHUNK, as the reference runs its processor per chunk.
         self.normalize = normalize
         self.pretrained = params is not None
-        model = Wav2Vec2Model(config)
+        model = WavLMModel(config) if isinstance(config, WavLMConfig) else Wav2Vec2Model(config)
         if params is None:
             if not allow_random_init:
                 raise ValueError(
@@ -244,7 +256,17 @@ class Wav2Vec2Extractor:
     @classmethod
     def from_hf_checkpoint(cls, checkpoint_path_or_name: str, **kwargs) -> "Wav2Vec2Extractor":
         """Load weights from a local HuggingFace checkpoint directory
-        (needs the ``transformers`` package)."""
+        (needs the ``transformers`` package). A checkpoint whose
+        ``model_type`` is ``"wavlm"`` (the Large layout) gives a WavLM
+        extractor, its ``config`` read from the checkpoint unless given."""
+        from transformers import AutoConfig
+
+        if AutoConfig.from_pretrained(checkpoint_path_or_name).model_type == "wavlm":
+            from transformers import WavLMModel as HFWavLM
+
+            hf = HFWavLM.from_pretrained(checkpoint_path_or_name)
+            kwargs.setdefault("config", wavlm_config_from_hf(hf.config))
+            return cls(params=port_hf_wavlm_state_dict(hf.state_dict()), **kwargs)
         from transformers import Wav2Vec2Model as HFModel
 
         hf = HFModel.from_pretrained(checkpoint_path_or_name)
@@ -423,10 +445,13 @@ class Wav2Vec2Extractor:
         (batch_size,) int32 sample counts. A short last batch is padded with
         zero chunks of ``min_samples``, so every batch has one shape.
         Counts the batch's real samples (``w2v2.samples``) and the zero
-        samples the encoder runs on besides (``w2v2.pad_samples``)."""
+        samples the encoder runs on besides (``w2v2.pad_samples``), and
+        its attention's (query, key) pairs: those of the real chunks' frames
+        (``w2v2.attn_pairs``, Σ t²) and the rest of the padded batch's
+        (``w2v2.attn_pad_pairs``, filler rows included)."""
         batch = np.zeros((self.batch_size, self.chunk_size), self.upload_dtype)
         lengths = np.full(self.batch_size, self.min_samples, np.int32)
-        real = 0
+        real = pairs = 0
         for j, i in enumerate(sel):
             c = chunk_data[i]
             if self.normalize:
@@ -436,8 +461,11 @@ class Wav2Vec2Extractor:
             batch[j, : len(c)] = c
             lengths[j] = len(c)
             real += len(c)
+            pairs += self._frames(len(c)) ** 2
         count("w2v2.samples", real)
         count("w2v2.pad_samples", batch.size - real)
+        count("w2v2.attn_pairs", pairs)
+        count("w2v2.attn_pad_pairs", self.batch_size * self._frames(self.chunk_size) ** 2 - pairs)
         return batch, lengths
 
     @spanned("w2v2.encode")

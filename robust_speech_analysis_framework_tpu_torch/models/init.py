@@ -22,8 +22,9 @@ def init_weights_(module: nn.Module, generator: torch.Generator) -> nn.Module:
 
     Matrices and conv kernels: uniform ±1/sqrt(fan_in) (torch's Linear/Conv
     default bound, and nn.LSTM's ±1/sqrt(H) for the recurrent weights);
-    vectors named like norm scales get ones, other vectors (biases) uniform
-    with the fan-in of their layer, LSTM biases ±1/sqrt(H). BatchNorm running
+    vectors named like norm scales (and WavLM's gate constants) get ones,
+    other vectors (biases) uniform with the fan-in of their layer, LSTM
+    biases ±1/sqrt(H). BatchNorm running
     statistics keep mean 0 and variance 1.
     """
     with torch.no_grad():
@@ -50,7 +51,9 @@ def _is_norm_scale(root: nn.Module, name: str) -> bool:
     owner_name, _, leaf = name.rpartition(".")
     owner = root.get_submodule(owner_name) if owner_name else root
     norm_types = (nn.BatchNorm1d, nn.LayerNorm)
-    return (isinstance(owner, norm_types) and leaf == "weight") or leaf == "gn_scale"
+    # WavLM's per-head gate constants start at one, as transformers starts them
+    return (isinstance(owner, norm_types) and leaf == "weight") or leaf in (
+        "gn_scale", "gru_rel_pos_const")
 
 
 # flax's variance_scaling "truncated_normal": the stddev of a unit normal

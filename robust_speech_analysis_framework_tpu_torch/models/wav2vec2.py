@@ -180,10 +180,14 @@ def _linear(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
 
 
 def _attention(x: torch.Tensor, q: tuple, k: tuple, v: tuple, heads: int, q_scale: float,
-               cdt: torch.dtype, attn_bias: Optional[torch.Tensor]) -> torch.Tensor:
+               cdt: torch.dtype, attn_bias: Optional[torch.Tensor],
+               normalize: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+               ) -> torch.Tensor:
     """Multi-head attention's context (B, T, heads · head_dim) in ``cdt``,
     before the output projection; ``q``/``k``/``v`` are (weight, bias) of
-    ``heads`` heads (all of a layer's, or an mp slice of them)."""
+    ``heads`` heads (all of a layer's, or an mp slice of them).
+    ``normalize`` (the scores (B, heads, T, T) → probabilities) takes the
+    place of ``attn_bias`` and the softmax (WavLM's biased softmax)."""
     b, t, _ = x.shape
     split = lambda y: y.reshape(b, t, heads, -1).transpose(1, 2)  # noqa: E731
     qh = split(_linear(x, *q, cdt) * q_scale)
@@ -191,9 +195,12 @@ def _attention(x: torch.Tensor, q: tuple, k: tuple, v: tuple, heads: int, q_scal
     vh = split(_linear(x, *v, cdt))
     # scores and softmax in float32 whatever the compute dtype
     scores = torch.matmul(qh, kh.transpose(-1, -2)).float()  # (B, heads, T, T)
-    if attn_bias is not None:
-        scores = scores + attn_bias
-    probs = torch.softmax(scores, dim=-1)
+    if normalize is not None:
+        probs = normalize(scores)
+    else:
+        if attn_bias is not None:
+            scores = scores + attn_bias
+        probs = torch.softmax(scores, dim=-1)
     return torch.matmul(probs.to(cdt), vh).transpose(1, 2).reshape(b, t, -1)
 
 
@@ -405,6 +412,22 @@ class ShardedWav2Vec2:
 # HF checkpoint porting
 # ---------------------------------------------------------------------------
 
+def hf_pos_conv_weight(state_dict: Mapping[str, Any], t: Callable[[str], np.ndarray]
+                       ) -> np.ndarray:
+    """The weight-normed positional conv of a ``transformers`` encoder as a
+    plain weight: g * v / ||v||, the norm taken over (out, in/groups) for
+    each tap (HF's weight_norm dim=2). Newer torch exports use
+    parametrizations.*.original{0,1}. ``t`` reads an entry as an array."""
+    if "encoder.pos_conv_embed.conv.weight_g" in state_dict:
+        g = t("encoder.pos_conv_embed.conv.weight_g")
+        v = t("encoder.pos_conv_embed.conv.weight_v")
+    else:
+        g = t("encoder.pos_conv_embed.conv.parametrizations.weight.original0")
+        v = t("encoder.pos_conv_embed.conv.parametrizations.weight.original1")
+    norm = np.sqrt((v**2).sum(axis=(0, 1), keepdims=True))
+    return g * v / np.maximum(norm, 1e-12)
+
+
 def port_hf_state_dict(state_dict: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """Map a ``transformers.Wav2Vec2Model`` state dict onto this module.
 
@@ -448,17 +471,7 @@ def port_hf_state_dict(state_dict: Mapping[str, Any]) -> Dict[str, torch.Tensor]
     out["feature_projection.projection.weight"] = t("feature_projection.projection.weight")
     out["feature_projection.projection.bias"] = t("feature_projection.projection.bias")
 
-    # Weight-normed positional conv: weight = g * v / ||v||, the norm taken
-    # over (out, in/groups) for each tap (HF's weight_norm dim=2). Newer
-    # torch exports use parametrizations.*.original{0,1}.
-    if "encoder.pos_conv_embed.conv.weight_g" in state_dict:
-        g = t("encoder.pos_conv_embed.conv.weight_g")
-        v = t("encoder.pos_conv_embed.conv.weight_v")
-    else:
-        g = t("encoder.pos_conv_embed.conv.parametrizations.weight.original0")
-        v = t("encoder.pos_conv_embed.conv.parametrizations.weight.original1")
-    norm = np.sqrt((v**2).sum(axis=(0, 1), keepdims=True))
-    out["pos_conv.conv.weight"] = g * v / np.maximum(norm, 1e-12)
+    out["pos_conv.conv.weight"] = hf_pos_conv_weight(state_dict, t)
     out["pos_conv.conv.bias"] = t("encoder.pos_conv_embed.conv.bias")
     out["encoder_norm.weight"] = t("encoder.layer_norm.weight")
     out["encoder_norm.bias"] = t("encoder.layer_norm.bias")

@@ -255,9 +255,13 @@ def _waves():
 def _expected_counts(ex, waves):
     chunks = [len(c) for w in waves.values() if len(w) >= ex.min_samples for c in ex._chunk(w)]
     batches = -(-len(chunks) // ex.batch_size)
+    pairs = sum(ex._frames(n) ** 2 for n in chunks)  # attention's (query, key) pairs
     return chunks, batches, {"w2v2.samples": sum(chunks),
                              "w2v2.pad_samples": batches * ex.batch_size * ex.chunk_size
-                             - sum(chunks)}
+                             - sum(chunks),
+                             "w2v2.attn_pairs": pairs,
+                             "w2v2.attn_pad_pairs": batches * ex.batch_size
+                             * ex._frames(ex.chunk_size) ** 2 - pairs}
 
 
 ENTRIES = {
