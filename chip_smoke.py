@@ -4,6 +4,7 @@
     python3 chip_smoke.py --march [DIR]
     python3 chip_smoke.py --train-kernels [DIR]
     python3 chip_smoke.py --conv0
+    python3 chip_smoke.py --posconv
     python3 chip_smoke.py --wavlm
 
 Needs one CUDA device and ``nvcc`` (CUDA_HOME or PATH); exits non-zero
@@ -16,7 +17,10 @@ the training kernels on) and prints the pre-pass's record, with a SHA-256 of
 its output at each timed shape; with DIR it builds the sources from DIR, so
 that two versions of ``lstm_train.cu`` are compared by time and digest.
 ``--conv0`` runs Wav2Vec2's first-block kernel phase alone (phase 8's
-first-block part) and prints its record. ``--wavlm`` runs WavLM's parts
+first-block part) and prints its record. ``--posconv`` runs the positional
+conv's part of phase 8 and one encoder batch of Wav2Vec2-base and of
+WavLM-Large with the kernel and with its plain version in its place, turn
+about, and prints its record. ``--wavlm`` runs WavLM's parts
 alone (phase 8's last part and phase 15) and prints the biased softmax's
 record with its launches in phase 15. Phases, each of which raises on
 failure:
@@ -100,6 +104,14 @@ failure:
    on the card (KERNEL_TOL of max |ref|), one count a call, with its time,
    the plain version's, cuDNN's conv_0 and the norm chain alone, its bound
    and a profile of one call (the statistics and main launches); then
+   Wav2Vec2's positional conv (pos_conv_gelu: grouped conv, bias, GELU) at
+   an extraction batch of each encoder (16 x 249 x 768 in 16 groups, ragged
+   with a filler row; 16 x 799 x 1024) and at one serving chunk (1 x 249)
+   against its plain version (KERNEL_TOL of max |ref|), one count a call,
+   two calls bit-equal, its time, TFLOP/s and bound (every tap of every
+   frame at 67 TFLOP/s), the plain version's time, cuDNN's conv alone
+   (library), the kernel at every frame tile (bit-equal to the planned
+   one), and profiles of one call and of its plain version; then
    WavLM's gated relative-position softmax (relpos_softmax) at an
    extraction batch of 16 s chunks (B=16, 16 heads, T=799, ragged key
    lengths) against its plain version (KERNEL_TOL), one count a call, two
@@ -172,8 +184,9 @@ failure:
     cores of ``experiments.py``), over phase 12's tree: MSHDS-25,
     openSMILE-912 and a full-width random-init Wav2Vec2-base of both tasks
     (counters reset just before and read just after: one K6 and one K7
-    launch per pitch pass or sub-batch and one period march per openSMILE
-    sub-batch, nothing else), the 9 SVM datasets
+    launch per pitch pass or sub-batch, one period march per openSMILE
+    sub-batch, Wav2Vec2's first-block and positional-conv kernels once an
+    encoder batch, nothing else), the 9 SVM datasets
     and the 18 SVM experiments on the batched SMO on the card (no kernel
     launched; each SMO call's lanes, iterations, host syncs and ms a step)
     against the float64 host solver (metrics 1e-9, AUC 1e-6, probabilities
@@ -328,6 +341,16 @@ JAX_WAVLM = "none: the JAX package has no WavLM"
 # an extraction batch: 16 chunks of 5 s at 16 kHz, ragged as the cell's
 CONV0_SAMPLES = (80_000,) * 9 + (8_000, 43_217, 79_999, 12_345, 65_536, 8_000, 8_000)
 CONV0_CHANNELS = 512
+POSCONV_SOURCE = "robust_speech_analysis_framework_tpu_torch/csrc/pos_conv.cu"
+JAX_POSCONV = "robust_speech_analysis_framework_tpu/models/wav2vec2.py:133"
+# B, T, C, groups, taps and each row's valid frames (the rest zeroed, as the
+# encoder zeroes its padded frames): an extraction batch of either encoder,
+# its last rows short chunks and a filler row
+POSCONV_SHAPES = {
+    "wav2vec2-base": ((16, 249, 768, 16, 128), (249,) * 12 + (200, 97, 12, 0)),
+    "wavlm-large": ((16, 799, 1024, 16, 128), (799,) * 12 + (649, 400, 150, 24)),
+}
+POSCONV_SERVING = (1, 249, 768, 16, 128)  # one 5 s chunk: a short request
 PALLAS = "robust_speech_analysis_framework_tpu/ops/pallas/lstm.py"
 PALLAS_VITERBI = "robust_speech_analysis_framework_tpu/ops/pallas/viterbi.py"
 
@@ -616,10 +639,11 @@ def serving_phase(dev: torch.device, tmp: str) -> dict:
     log(f"[serving] kernel launches on the main path: {launches}")
     n_batches = len(waves) + 1  # an encoder batch a predict(), one for predict_files' files
     if (launches["lstm_scan_grouped"] != 2 * len(preds)
-            or launches["conv0_norm_gelu"] != n_batches
-            or sum(launches.values()) != 2 * len(preds) + n_batches):
+            or launches["conv0_norm_gelu"] != n_batches or launches["pos_conv_gelu"] != n_batches
+            or sum(launches.values()) != 2 * len(preds) + 2 * n_batches):
         raise AssertionError("the serving path did not run K1 for every biLSTM layer and the "
-                             "first-block kernel for every encoder batch, and only them")
+                             "first-block and positional-conv kernels for every encoder batch, "
+                             "and only them")
 
     cpu_extractor = Wav2Vec2Extractor(
         params={k: v.cpu() for k, v in extractor.model.state_dict().items()},
@@ -1038,6 +1062,7 @@ def _counters():
                      for name in ("viterbi_forward_costs", "viterbi_path")})
     counters["march_periods"] = march_ops.march_periods
     counters["conv0_norm_gelu"] = w2v_ops.conv0_norm_gelu
+    counters["pos_conv_gelu"] = w2v_ops.pos_conv_gelu
     counters["relpos_softmax"] = wavlm_ops.relpos_softmax
     return counters
 
@@ -1760,6 +1785,160 @@ def conv0_kernel_phase(dev: torch.device) -> dict:
         "max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
         "library_ms": conv_ms + chain_ms, "conv_ms": conv_ms, "chain_ms": chain_ms,
         "shape": f"B={b} L={n} C={c}"}}
+
+
+def posconv_bound_ms(b: int, t: int, c: int, groups: int, k: int) -> tuple:
+    """Least time for the positional conv: every tap of every frame, 2 K C/G
+    operations an output, at the fp32 FMA rate; x read, the output written
+    and the weights read once."""
+    cg = c // groups
+    return bound_ms(4.0 * (2 * b * t * c + c * cg * k + c), 2.0 * b * t * c * cg * k)
+
+
+def _posconv_inputs(dev, rng, shape, frames=None) -> tuple:
+    b, t, c, groups, k = shape
+    x = rng.normal(size=(b, t, c))
+    for i, n in enumerate(frames or ()):
+        x[i, n:] = 0.0
+    f32 = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)  # noqa: E731
+    cg = c // groups
+    return (f32(x), f32(rng.normal(size=(c, cg, k)) / np.sqrt(cg * k)),
+            f32(0.1 * rng.normal(size=c)), groups)
+
+
+def _posconv_tiles(args) -> dict:
+    """The kernel's ms at every frame tile that fits a block (bit-equal to
+    the planned tile's output: the sums' order does not depend on it)."""
+    x, weight, bias, groups = args
+    b, t, c = x.shape
+    wt = w2v_ops._pos_conv_weights(weight, groups)
+    want = w2v_ops.pos_conv_gelu(*args)
+    times = {}
+    for tile in w2v_ops.POS_TILES:
+        if w2v_ops.pos_conv_smem_bytes(c // groups, wt.shape[1], tile) > w2v_ops.SMEM_BLOCK:
+            continue
+        out = torch.empty_like(want)
+        launch = lambda: w2v_ops._launch_pos_conv(x, wt, bias, out, weight.shape[2] // 2,  # noqa: E731
+                                                  tile)
+        times[tile] = round(cuda_ms(launch, 10), 4)
+        if not torch.equal(out, want):
+            raise AssertionError(f"the positional conv's kernel at tile {tile} differs from "
+                                 f"the planned tile's output")
+    return times
+
+
+def posconv_kernel_phase(dev: torch.device) -> dict:
+    """Wav2Vec2's positional conv (``pos_conv_gelu``) at an extraction batch
+    of each encoder and at one serving chunk against its plain version on
+    the card: one count a call, two calls bit-equal, its time at the planned
+    tile and at every tile, its bound, the plain version's time and cuDNN's
+    conv alone (``library_ms``), and a profile of one call."""
+    from robust_speech_analysis_framework_tpu_torch.device import conv1d
+
+    rng = np.random.default_rng(24)
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    records = {}
+    cases = [(label, shape, frames) for label, (shape, frames) in POSCONV_SHAPES.items()]
+    cases.append(("serving", POSCONV_SERVING, None))
+    for label, shape, frames in cases:
+        b, t, c, groups, k = shape
+        args = _posconv_inputs(dev, rng, shape, frames)
+        x, weight, bias, _ = args
+        with torch.inference_mode():
+            ref = w2v_ops.pos_conv_gelu_reference(*args)
+            before = w2v_ops.pos_conv_gelu.launches
+            got = w2v_ops.pos_conv_gelu(*args)
+            torch.cuda.synchronize()
+            counted = w2v_ops.pos_conv_gelu.launches - before
+            abs_err = float((got - ref).abs().max())
+            err = abs_err / float(ref.abs().max())
+            same = torch.equal(w2v_ops.pos_conv_gelu(*args), got)
+            kp = -(-k // w2v_ops.POS_TAPS) * w2v_ops.POS_TAPS
+            tile = w2v_ops.pos_conv_tile(b, t, groups, c // groups, kp, n_sms)
+            log(f"[posconv] {label} B={b} T={t} C={c} G={groups} K={k} (tile {tile}): kernel vs "
+                f"plain version max|d| / max|ref| = {err:.3e} (tol {KERNEL_TOL}); {counted} count "
+                f"a call; two calls bit-equal: {same}")
+            if not (err <= KERNEL_TOL and counted == 1 and same):
+                raise AssertionError("pos_conv_gelu disagrees with its plain version")
+            del ref, got
+            ms = cuda_ms(lambda: w2v_ops.pos_conv_gelu(*args), 20)
+            plain_ms = cuda_ms(lambda: w2v_ops.pos_conv_gelu_reference(*args), 5)
+            library_ms = cuda_ms(lambda: conv1d(x.transpose(1, 2), weight, bias, torch.float32,
+                                                padding=(k // 2,), groups=groups), 5)
+            tiles = _posconv_tiles(args)
+            bound, by = posconv_bound_ms(*shape)
+            tflops = 2.0 * b * t * c * (c // groups) * k / (ms * 1e-3) / 1e12
+            log(f"[posconv] {label}: kernel {ms:.4f} ms, {tflops:.2f} TFLOP/s ({bound / ms:.1%} of "
+                f"its bound {bound:.4f} ms by {by}); plain version {plain_ms:.3f} ms; cuDNN's "
+                f"conv alone {library_ms:.3f} ms; by tile {tiles}")
+            if label != "serving":
+                profile_device(f"one pos_conv_gelu call ({label})",
+                               lambda: w2v_ops.pos_conv_gelu(*args), 4)
+                profile_device(f"its plain version ({label})",
+                               lambda: w2v_ops.pos_conv_gelu_reference(*args), 6)
+        records[label] = {"max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
+                          "bound_ms": bound, "bound_by": by, "library_ms": library_ms,
+                          "tflops": tflops, "tile": tile, "tiles": tiles,
+                          "shape": f"B={b} T={t} C={c} G={groups} K={k}"}
+        del args, x, weight, bias
+    torch.cuda.empty_cache()
+    rec = dict(records["wav2vec2-base"])
+    rec["max_abs_err"] = max(r["max_abs_err"] for r in records.values())
+    rec["wavlm"], rec["serving"] = records["wavlm-large"], records["serving"]
+    return {"pos_conv_gelu": rec}
+
+
+def posconv_encoder_batches(dev: torch.device) -> dict:
+    """One encoder batch of each model (Wav2Vec2-base at 16 × 5 s, WavLM-Large
+    at 16 × 16 s, float32, random weights) with the positional conv's kernel
+    and with its plain version in its place, turn about: device ms each, the
+    kernel's launches, and a profile of the batch with the kernel."""
+    from robust_speech_analysis_framework_tpu_torch.models import wav2vec2 as w2v_model
+    from robust_speech_analysis_framework_tpu_torch.models.init import init_weights_
+    from robust_speech_analysis_framework_tpu_torch.models.wavlm import WavLMConfig, WavLMModel
+
+    rng = np.random.default_rng(25)
+    out = {}
+    for label, make, n in (("wav2vec2-base", lambda: w2v_model.Wav2Vec2Model(Wav2Vec2Config()),
+                            80_000),
+                           ("wavlm-large", lambda: WavLMModel(WavLMConfig()), 256_000)):
+        model = make()
+        init_weights_(model, torch.Generator().manual_seed(0))
+        model = model.to(dev).eval()
+        samples = np.array([n] * 13 + [n * 3 // 4, n // 3, n // 10])
+        wav = (0.1 * rng.normal(size=(len(samples), n))).astype(np.float32)
+        for i, m in enumerate(samples):
+            wav[i, m:] = 0.0
+        wav, lengths = torch.from_numpy(wav).to(dev), torch.from_numpy(samples).to(dev)
+
+        def encode():
+            with torch.inference_mode():
+                return model(wav, lengths)
+
+        before = w2v_ops.pos_conv_gelu.launches
+        encode()
+        torch.cuda.synchronize()
+        launches = w2v_ops.pos_conv_gelu.launches - before
+        times = {"kernel": [], "plain": []}
+        for turn in ("plain", "kernel", "kernel", "plain"):
+            if turn == "plain":
+                w2v_model.pos_conv_gelu = w2v_ops.pos_conv_gelu_reference
+            try:
+                times[turn].append(cuda_ms(encode, 3))
+            finally:
+                w2v_model.pos_conv_gelu = w2v_ops.pos_conv_gelu
+        kernel_ms, plain_ms = statistics.mean(times["kernel"]), statistics.mean(times["plain"])
+        log(f"[posconv] {label} encoder batch {len(samples)} x {n}: {kernel_ms:.3f} ms with the "
+            f"kernel ({times['kernel']}), {plain_ms:.3f} ms with its plain version "
+            f"({times['plain']}); {launches} kernel launch a batch")
+        if launches != 1:
+            raise AssertionError("the encoder batch did not launch the positional conv's kernel "
+                                 "once")
+        profile_device(f"one {label} encoder batch", encode, 12)
+        out[label] = {"kernel_ms": kernel_ms, "plain_ms": plain_ms}
+        del model, wav
+        torch.cuda.empty_cache()
+    return out
 
 
 WAVLM_SHAPE = (16, 16, 799)  # B, heads, T: an extraction batch of 16 s chunks
@@ -2612,12 +2791,14 @@ def w2v_phase(dev: torch.device, tmp: str) -> dict:
     extract_launches = {name: fn.launches for name, fn in counters.items()}
     n_f32 = len(variants) + 1  # the first pass, every float32 variant, the resident pass
     log(f"[w2v] launches over the extractions: {extract_launches}; expected the first-block "
-        f"kernel {per_pass} times (encoder batches) in each of {n_f32} float32 passes and "
-        f"none in the bfloat16 one, no other kernel")
-    if not (per_pass > 0 and extract_launches["conv0_norm_gelu"] == n_f32 * per_pass
-            == sum(extract_launches.values())):
-        raise AssertionError("the float32 extractions did not run the first-block kernel, and "
-                             "only it, once an encoder batch (or bfloat16 ran it)")
+        f"and positional-conv kernels {per_pass} times each (encoder batches) in each of "
+        f"{n_f32} float32 passes and none in the bfloat16 one, no other kernel")
+    if not (per_pass > 0 and extract_launches["conv0_norm_gelu"]
+            == extract_launches["pos_conv_gelu"] == n_f32 * per_pass
+            and sum(extract_launches.values()) == 2 * n_f32 * per_pass):
+        raise AssertionError("the float32 extractions did not run the first-block and "
+                             "positional-conv kernels, and only them, once an encoder batch "
+                             "(or bfloat16 ran them)")
     groups = participant_clips(interview)
     grp, regroup_s = _synced(lambda: res.regroup(groups))
     host = concat_groups(f32, groups)
@@ -2786,12 +2967,14 @@ def wavlm_phase(dev: torch.device) -> dict:
         f"{first_s:.3f} s), extract_sequences_resident {res_s:.3f} s, "
         f"extract_embeddings_arrays {emb_s:.3f} s; peak memory {peak / 1e9:.2f} GB")
     log(f"[wavlm] launches over the three extractions: {launches}; expected the biased "
-        f"softmax {config.num_layers} times in each of {encodes[0]} encoder batches, no "
-        f"other kernel")
+        f"softmax {config.num_layers} times and the positional conv once in each of "
+        f"{encodes[0]} encoder batches, no other kernel")
     if not (encodes[0] > 0 and launches["relpos_softmax"] == config.num_layers * encodes[0]
-            == sum(launches.values())):
-        raise AssertionError("the WavLM extractions did not run the biased softmax, and only "
-                             "it, once a layer of each encoder batch")
+            and launches["pos_conv_gelu"] == encodes[0]
+            and sum(launches.values()) == (config.num_layers + 1) * encodes[0]):
+        raise AssertionError("the WavLM extractions did not run the biased softmax once a "
+                             "layer and the positional conv once of each encoder batch, and "
+                             "only them")
     shapes = {n: seqs[n].shape for n in waves}
     frames = {n: int(res.lengths[res.row(n)]) for n in waves}
     res_err = max(float(np.abs(res[n] - seqs[n]).max()) for n in waves)
@@ -2964,14 +3147,14 @@ def experiments_phase(dev: torch.device, tmp: str) -> dict:
         f"{peak_extract:.3f} GiB")
     if not (extract_launches["viterbi_path"] == extract_launches["viterbi_forward_costs"]
             == n_paths and extract_launches["march_periods"] == n_sub
-            and extract_launches["conv0_norm_gelu"] > 0
+            and extract_launches["conv0_norm_gelu"] == extract_launches["pos_conv_gelu"] > 0
             and sum(extract_launches.values()) == (2 * n_paths + n_sub
-                                                   + extract_launches["conv0_norm_gelu"])
+                                                   + 2 * extract_launches["conv0_norm_gelu"])
             and len(passes["opensmile"]) == n_sub and len(calls["mshds"]) == 2
             and len(passes["mshds"]) in (10, 13, 16)):
         raise AssertionError("the extractions did not launch K6/K7 once per pitch pass or "
                              "sub-batch, the period march once per openSMILE sub-batch and "
-                             "Wav2Vec2's first-block kernel, and only them")
+                             "Wav2Vec2's first-block and positional-conv kernels, and only them")
     rows_of = {"reading": len(reading), "interview": len({r["unique_participant_id"]
                                                          for r in interview})}
     for (fs, task), name in exp_mod.TABLE_ARTIFACTS.items():
@@ -3361,7 +3544,8 @@ def multidevice_phase(dev: torch.device, tmp: str) -> dict:
     # no Wav2Vec2 runs here: the grid's is in _md_w2v, at mp 2 on cuDNN's per-slice route;
     # no WavLM either
     missing = [n for n, k in launches.items()
-               if n not in ("lstm_scan", "conv0_norm_gelu", "relpos_softmax") and k == 0]
+               if n not in ("lstm_scan", "conv0_norm_gelu", "pos_conv_gelu", "relpos_softmax")
+               and k == 0]
     if missing or launches["lstm_scan"]:
         raise AssertionError(f"the multi-device path did not launch {missing} (or launched K2)")
     _md_step_check(dev, grid)
@@ -3476,6 +3660,7 @@ def run(dev: torch.device, smi: str) -> None:
     records.update(viterbi_kernel_phase(dev))
     records.update(march_kernel_phase(dev))
     records.update(conv0_kernel_phase(dev))
+    records.update(posconv_kernel_phase(dev))
     records.update(wavlm_kernel_phase(dev))
     flagship_phase(dev)
     with tempfile.TemporaryDirectory() as tmp:
@@ -3505,6 +3690,7 @@ def run(dev: torch.device, smi: str) -> None:
         ("viterbi_path", VITERBI_SOURCE, f"{PALLAS_VITERBI}:135"),
         ("march_periods", MARCH_SOURCE, JAX_MARCH),
         ("conv0_norm_gelu", CONV0_SOURCE, JAX_CONV0),
+        ("pos_conv_gelu", POSCONV_SOURCE, JAX_POSCONV),
         ("relpos_softmax", WAVLM_SOURCE, JAX_WAVLM),
     ):
         rec = records[name]
@@ -3523,7 +3709,8 @@ def run(dev: torch.device, smi: str) -> None:
             **{k: rec[k] for k in ("serving", "praat", "mshds", "sweep_ms", "split", "lanes",
                                    "boundaries_equal", "periods_longest_lane", "us_a_period",
                                    "phases", "conv_ms", "chain_ms", "bound_every_pair_ms",
-                                   "encoder_batch_ms", "encoder_peak_bytes")
+                                   "encoder_batch_ms", "encoder_peak_bytes", "tflops", "tile",
+                                   "tiles", "wavlm")
                if k in rec},
         })
     log(f"[card] {smi}")
@@ -3583,6 +3770,22 @@ def conv0_only() -> None:
     print(json.dumps(conv0_kernel_phase(torch.device("cuda", 0))))
 
 
+def posconv_only() -> None:
+    """``--posconv``: the positional conv's kernel phase and one encoder
+    batch of each model with and without it; prints the kernel's record."""
+    t0 = time.perf_counter()
+    _build.build_all()
+    log(f"[build] nvcc for {_build.sources()}: {time.perf_counter() - t0:.2f} s")
+    for line in ptxas_report(_build.build_logs.get("pos_conv", "")):
+        log(f"[build] pos_conv: {line}")
+    torch.backends.cuda.matmul.fp32_precision = "ieee"
+    torch.backends.cudnn.conv.fp32_precision = "ieee"
+    dev = torch.device("cuda", 0)
+    record = posconv_kernel_phase(dev)
+    record["pos_conv_gelu"]["encoder_batches"] = posconv_encoder_batches(dev)
+    print(json.dumps(record))
+
+
 def wavlm_only() -> None:
     """``--wavlm``: WavLM's kernel and encoder batch phase and its extraction
     path (phase 8's last part and phase 15 alone); prints the kernel's
@@ -3616,6 +3819,11 @@ def main() -> int:
     if len(sys.argv) > 1 and sys.argv[1] == "--conv0":
         log(f"[card] {smi}")
         conv0_only()
+        log(f"[card] {smi}")
+        return 0
+    if len(sys.argv) > 1 and sys.argv[1] == "--posconv":
+        log(f"[card] {smi}")
+        posconv_only()
         log(f"[card] {smi}")
         return 0
     if len(sys.argv) > 1 and sys.argv[1] == "--wavlm":

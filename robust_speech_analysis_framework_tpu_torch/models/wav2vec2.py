@@ -38,6 +38,8 @@ from ..ops.cuda.wav2vec2 import (
     channel_norm_gelu,
     conv0_norm_gelu,
     conv0_norm_gelu_reference,
+    pos_conv_gelu,
+    pos_conv_gelu_reference,
 )
 
 
@@ -124,7 +126,9 @@ class FeatureProjection(nn.Module):
 
 
 class PositionalConvEmbedding(nn.Module):
-    """Grouped conv positional embedding (kernel 128, groups 16)."""
+    """Grouped conv positional embedding (kernel 128, groups 16): hidden
+    states (B, T, D) → GELU(conv + bias) (B, T, D) float32, every frame of
+    the padded batch; the caller adds it to its input."""
 
     def __init__(self, config: Wav2Vec2Config):
         super().__init__()
@@ -137,10 +141,9 @@ class PositionalConvEmbedding(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         conv = self.conv
-        h = conv1d(x.transpose(1, 2), conv.weight, conv.bias, self.cdtype,
-                   padding=conv.padding, groups=conv.groups).float()
-        # Even kernel + symmetric padding yields one extra frame; drop it.
-        return F.gelu(h[:, :, : x.shape[1]]).transpose(1, 2)
+        if self.cdtype == torch.float32:  # the hand-written kernel on the card
+            return pos_conv_gelu(x, conv.weight, conv.bias, conv.groups)
+        return pos_conv_gelu_reference(x, conv.weight, conv.bias, conv.groups, cdt=self.cdtype)
 
 
 class EncoderLayer(nn.Module):

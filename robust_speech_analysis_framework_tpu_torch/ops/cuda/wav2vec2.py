@@ -1,11 +1,11 @@
-"""Wav2Vec2's first feature-encoder block: the hand-written CUDA kernel and
-its plain PyTorch version.
+"""Wav2Vec2's hand-written CUDA kernels and their plain PyTorch versions:
+the feature encoder's first block and the positional conv embedding.
 
-The block is conv_0 over the raw waveform (one input channel, C outputs,
-10 taps, stride 5, no bias), the norm of each (row, channel) over the row's
-valid frames, the ``gn_scale`` / ``gn_bias`` affine and the exact (erf)
-GELU. The JAX package leaves it to XLA (``models/wav2vec2.py``: conv_0 and
-its masked channel norm); there is no Pallas kernel behind it.
+The first block is conv_0 over the raw waveform (one input channel, C
+outputs, 10 taps, stride 5, no bias), the norm of each (row, channel) over
+the row's valid frames, the ``gn_scale`` / ``gn_bias`` affine and the exact
+(erf) GELU. The JAX package leaves it to XLA (``models/wav2vec2.py``: conv_0
+and its masked channel norm); there is no Pallas kernel behind it.
 
 * :func:`conv0_norm_gelu`: → (B, C, T) float32, T = (L − 10) // 5 + 1. On
   CUDA one call is a memset and two launches of ``csrc/feature_conv0.cu``
@@ -20,9 +20,24 @@ its masked channel norm); there is no Pallas kernel behind it.
   The bfloat16 preset runs it on every device; ``ShardedWav2Vec2`` at
   mp > 1 calls :func:`channel_norm_gelu` after gathering its conv's slices.
 
+The positional conv embedding is a grouped conv over the hidden states (C
+channels in G groups, K taps, K // 2 frames of zero padding a side), its
+bias and the exact GELU, (B, T, C) in and out; the JAX package leaves it to
+XLA too (its grouped ``nn.Conv``), and WavLM reuses it.
+
+* :func:`pos_conv_gelu`: → (B, T, C) float32, contiguous. On CUDA one
+  launch of ``csrc/pos_conv.cu`` after the weights are laid out as (G, Kp,
+  C/G in, C/G out), K padded by zero taps to Kp, a multiple of 4; a block
+  computes a tile of frames (:func:`pos_conv_tile`) of one group and row.
+* :func:`pos_conv_gelu_reference`: the positional conv as the encoder ran
+  it before the kernel: the conv in the compute dtype through
+  :func:`..device.conv1d`, the extra frame of an even kernel dropped, GELU,
+  a (B, T, C) view. The bfloat16 preset runs it on every device.
+
 Dispatch goes by the tensors' device: CPU tensors take the plain version,
 CUDA tensors launch the kernel or raise. There is no fallback between them.
-``conv0_norm_gelu.launches`` counts the kernel's calls (two launches each).
+``conv0_norm_gelu.launches`` counts the first block's calls (two launches
+each), ``pos_conv_gelu.launches`` the positional conv's launches.
 """
 
 from __future__ import annotations
@@ -38,6 +53,12 @@ from ._build import call as _call
 from ._build import load as _load
 
 TAPS, STRIDE = 10, 5  # the kernel's conv: every Wav2Vec2 config's conv_0
+POS_TAPS = 4  # taps a weight stage of the positional conv's kernel: K is padded to a multiple
+POS_LANES = 8  # threads across a group's output channels: C/G a multiple of 8 ...
+POS_MAX_GROUP = 64  # ... and at most 64 (a thread's 8 frames x C/G/8 sums in registers)
+POS_TILES = tuple(range(32, 257, 32))  # frames (threads) a block
+SMEM_BLOCK, SMEM_SM = 232_448, 233_472  # H100: a block's dynamic shared memory; an SM's
+MAX_ROWS = 65_535  # the launch grid's second and third dimensions
 
 
 def masked_channel_norm(
@@ -121,8 +142,8 @@ def conv0_norm_gelu(
     if k != TAPS or stride != STRIDE:
         raise ValueError(f"the kernel takes a conv of {TAPS} taps at stride {STRIDE}, "
                          f"got {k} taps at stride {stride}")
-    if b > 65_535:
-        raise ValueError(f"the kernel takes at most 65535 rows, got {b}")
+    if b > MAX_ROWS:
+        raise ValueError(f"the kernel takes at most {MAX_ROWS} rows, got {b}")
     tensors = (wav, weight, gn_scale, gn_bias)
     if not all(t.dtype == torch.float32 for t in tensors):
         raise TypeError(f"expected float32, got {[t.dtype for t in tensors]}")
@@ -146,3 +167,119 @@ def conv0_norm_gelu(
 
 
 conv0_norm_gelu.launches = 0
+
+
+def pos_conv_gelu_reference(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                            groups: int, cdt: torch.dtype = torch.float32) -> torch.Tensor:
+    """Plain positional conv: ``x`` (B, T, C), ``weight`` (C, C/groups, K),
+    ``bias`` (C,) → GELU of the conv (padding K // 2, the operands and result
+    in ``cdt``) as float32, a (B, T, C) view of a (B, C, T) tensor."""
+    k = weight.shape[2]
+    h = conv1d(x.transpose(1, 2), weight, bias, cdt, padding=(k // 2,), groups=groups).float()
+    # Even kernel + symmetric padding yields one extra frame; drop it.
+    return F.gelu(h[:, :, : x.shape[1]]).transpose(1, 2)
+
+
+def pos_conv_smem_bytes(cg: int, kp: int, tile: int) -> int:
+    """A block's dynamic shared memory, as ``csrc/pos_conv.cu`` sizes it: the
+    input window (cg channels of tile + kp frames) and two weight stages of
+    ``POS_TAPS`` taps of cg × cg."""
+    return 4 * (cg * (tile + kp) + 2 * POS_TAPS * cg * cg)
+
+
+def pos_conv_tile(b: int, t: int, groups: int, cg: int, kp: int, n_sms: int) -> int:
+    """The kernel's frame tile (its threads a block) for ``b`` rows of ``t``
+    frames, ``groups`` groups of ``cg`` channels and ``kp`` taps on a card of
+    ``n_sms`` SMs. A warp's work is the same at every tile, and its FMAs
+    keep a scheduler (four an SM) nearly busy alone: a round of resident
+    blocks lasts as many warp times as the busiest scheduler holds warps,
+    and the call its rounds (a sweep of every tile on the H100 at both
+    encoders' shapes bears this out). The cheapest tile wins; of equal cost,
+    the one with more warps resident, then the larger."""
+    best = None
+    for tile in POS_TILES:
+        smem = pos_conv_smem_bytes(cg, kp, tile)
+        if smem > SMEM_BLOCK:
+            continue
+        per_sm = min(SMEM_SM // (smem + 1024), 2048 // tile)
+        blocks = b * groups * -(-t // tile)
+        rounds = -(-blocks // (n_sms * per_sm))
+        warps = per_sm * tile // 32
+        key = (rounds * -(-warps // 4), -warps, -tile)
+        if best is None or key < best[0]:
+            best = (key, tile)
+    if best is None:
+        raise ValueError(f"no frame tile of the positional conv's kernel fits a block's shared "
+                         f"memory at {cg} channels a group and {kp} taps")
+    return best[1]
+
+
+def _check_pos(x, weight, bias, groups) -> None:
+    if x.ndim != 3 or weight.ndim != 3:
+        raise ValueError(f"expected x (B, T, C) and weight (C, C/groups, K), got "
+                         f"{tuple(x.shape)}, {tuple(weight.shape)}")
+    c = x.shape[2]
+    if groups < 1 or c % groups:
+        raise ValueError(f"{groups} groups do not divide {c} channels")
+    if weight.shape[:2] != (c, c // groups) or weight.shape[2] < 1:
+        raise ValueError(f"expected weight ({c}, {c // groups}, K), got {tuple(weight.shape)}")
+    if bias.shape != (c,):
+        raise ValueError(f"expected bias of ({c},), got {tuple(bias.shape)}")
+    tensors = (x, weight, bias)
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError(f"inputs on {[str(t.device) for t in tensors]}")
+    if not all(t.dtype == torch.float32 for t in tensors):
+        raise TypeError(f"expected float32, got {[t.dtype for t in tensors]}")
+
+
+def _pos_conv_weights(weight: torch.Tensor, groups: int) -> torch.Tensor:
+    """(C, C/G, K) → (G, Kp, C/G in, C/G out), contiguous, taps K..Kp zero."""
+    c, cg, k = weight.shape
+    wt = weight.reshape(groups, cg, cg, k).permute(0, 3, 2, 1)
+    kp = -(-k // POS_TAPS) * POS_TAPS
+    return F.pad(wt, (0, 0, 0, 0, 0, kp - k)) if kp != k else wt.contiguous()
+
+
+def _launch_pos_conv(x: torch.Tensor, wt: torch.Tensor, bias: torch.Tensor, out: torch.Tensor,
+                     pad: int, tile: int) -> None:
+    b, t, c = x.shape
+    _call("pos_conv", "pos_conv_gelu_f32", x.device, x, wt, bias, out, b, t, c, wt.shape[2],
+          wt.shape[1], pad, tile)
+
+
+def pos_conv_gelu(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                  groups: int) -> torch.Tensor:
+    """GELU of the grouped positional conv: (B, T, C) → (B, T, C) float32,
+    as :func:`pos_conv_gelu_reference`. Inference only: the kernel has no
+    backward."""
+    _check_pos(x, weight, bias, groups)
+    if x.device.type == "cpu":
+        return pos_conv_gelu_reference(x, weight, bias, groups)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    b, t, c = x.shape
+    cg, k = c // groups, weight.shape[2]
+    if cg % POS_LANES or cg > POS_MAX_GROUP:
+        raise ValueError(f"the kernel takes groups of 8, 16, ..., {POS_MAX_GROUP} channels, "
+                         f"got {cg}")
+    if b > MAX_ROWS or groups > MAX_ROWS:
+        raise ValueError(f"the kernel takes at most {MAX_ROWS} rows and groups, got {b}, {groups}")
+    if not x.is_contiguous():
+        raise ValueError("the kernel reads contiguous (B, T, C) hidden states")
+    bias = bias.contiguous()
+    if x.data_ptr() % 16 or bias.data_ptr() % 16:
+        raise ValueError("the kernel reads x and bias 16-byte aligned")
+    if torch.is_grad_enabled() and any(a.requires_grad for a in (x, weight, bias)):
+        raise RuntimeError("pos_conv_gelu has no backward on CUDA: call it under "
+                           "torch.no_grad() or torch.inference_mode()")
+    out = torch.empty((b, t, c), device=x.device, dtype=torch.float32)
+    if b * t == 0:
+        return out
+    wt = _pos_conv_weights(weight, groups)
+    n_sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    _launch_pos_conv(x, wt, bias, out, k // 2, pos_conv_tile(b, t, groups, cg, wt.shape[1], n_sms))
+    pos_conv_gelu.launches += 1
+    return out
+
+
+pos_conv_gelu.launches = 0

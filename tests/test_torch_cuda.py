@@ -7,6 +7,7 @@ on a machine without it (``tests/conftest.py`` imports JAX, hence
 Without a CUDA device every test here skips.
 """
 
+import copy
 import zlib
 
 import numpy as np
@@ -939,6 +940,136 @@ def test_wav2vec2_model_on_card_matches_cpu_and_runs_the_conv0_kernel(cuda_devic
         got, got_lens = card(torch.from_numpy(wav).to(cuda_device),
                              torch.from_numpy(lengths).to(cuda_device))
     assert w2v_ops.conv0_norm_gelu.launches == before + 1
+    np.testing.assert_array_equal(got_lens.cpu().numpy(), ref_lens.numpy())
+    for i, n in enumerate(ref_lens.tolist()):
+        np.testing.assert_allclose(got[i, :n].cpu().numpy(), ref[i, :n].numpy(), rtol=0,
+                                   atol=1e-4)
+
+
+POS_CONV_TOL = 1e-5  # of max |ref|: 6,144 / 8,192 products an output in another order
+POS_CONV_CASES = {  # B, T, C, groups, K, each row's valid frames (the rest zeroed) or None
+    "w2v2-cell": (16, 249, 768, 16, 128, (249,) * 12 + (200, 97, 12, 0)),
+    "wavlm-batch": (16, 799, 1024, 16, 128, (799,) * 12 + (649, 400, 150, 24)),
+    "t1": (3, 1, 768, 16, 128, None),
+    "t-below-64": (2, 37, 1024, 16, 128, (37, 20)),
+    "t-not-a-tile": (3, 300, 768, 16, 128, None),
+    "b1": (1, 249, 768, 16, 128, None),
+    "small-groups": (2, 50, 32, 4, 16, None),
+    "odd-k": (2, 70, 96, 2, 15, None),
+    "k-not-a-multiple-of-4": (2, 70, 40, 1, 18, None),
+}
+
+
+def _pos_conv_case(name, device):
+    """(x (B, T, C), weight (C, C/G, K), bias (C,), groups) on ``device``."""
+    b, t, c, groups, k, frames = POS_CONV_CASES[name]
+    rng = np.random.default_rng(zlib.crc32(name.encode()))
+    x = rng.normal(size=(b, t, c))
+    for i, n in enumerate(frames or ()):
+        x[i, n:] = 0.0
+    cg = c // groups
+    f32 = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(device)  # noqa: E731
+    return (f32(x), f32(rng.normal(size=(c, cg, k)) / np.sqrt(cg * k)),
+            f32(0.1 * rng.normal(size=c)), groups)
+
+
+@pytest.mark.parametrize("case", sorted(POS_CONV_CASES))
+def test_pos_conv_kernel_matches_plain_version(cuda_device, case):
+    """The positional conv's kernel against its plain version (cuDNN's
+    grouped conv, the extra frame dropped, GELU) over the whole output."""
+    from robust_speech_analysis_framework_tpu_torch.ops.cuda import wav2vec2 as w2v_ops
+
+    args = _pos_conv_case(case, cuda_device)
+    with torch.no_grad():
+        ref = w2v_ops.pos_conv_gelu_reference(*args)
+        before = w2v_ops.pos_conv_gelu.launches
+        got = w2v_ops.pos_conv_gelu(*args)
+        torch.cuda.synchronize()
+    assert w2v_ops.pos_conv_gelu.launches == before + 1
+    assert got.shape == ref.shape and got.dtype == torch.float32 and got.is_contiguous()
+    scale = float(ref.abs().max())
+    err = float((got - ref).abs().max())
+    assert err <= POS_CONV_TOL * scale, (case, err, scale)
+    again = w2v_ops.pos_conv_gelu(*args)
+    assert torch.equal(again, got)  # no atomics, a fixed order of sums: the same bits every call
+
+
+def test_pos_conv_kernel_counts_one_launch_a_call_and_rejects_what_it_does_not_take(cuda_device):
+    from robust_speech_analysis_framework_tpu_torch.ops.cuda import wav2vec2 as w2v_ops
+
+    x, weight, bias, groups = _pos_conv_case("t-not-a-tile", cuda_device)
+    w2v_ops.pos_conv_gelu.launches = 0
+    with torch.no_grad():
+        for _ in range(3):
+            w2v_ops.pos_conv_gelu(x, weight, bias, groups)
+        assert w2v_ops.pos_conv_gelu(x[:0], weight, bias, groups).shape == (0, 300, 768)
+        assert w2v_ops.pos_conv_gelu(x[:, :0], weight, bias, groups).shape == (3, 0, 768)
+        assert w2v_ops.pos_conv_gelu.launches == 3
+        with pytest.raises(TypeError, match="float32"):
+            w2v_ops.pos_conv_gelu(x.double(), weight, bias, groups)
+        with pytest.raises(ValueError, match="contiguous"):
+            w2v_ops.pos_conv_gelu(x.transpose(0, 1).contiguous().transpose(0, 1), weight, bias,
+                                  groups)
+        with pytest.raises(ValueError, match="groups of 8"):  # 9 channels a group
+            w2v_ops.pos_conv_gelu(x[:, :, :144], weight[:144, :9], bias[:144], groups)
+        with pytest.raises(ValueError, match="groups of 8"):  # 72 channels a group
+            w2v_ops.pos_conv_gelu(x[:, :, :144].contiguous(), torch.zeros(144, 72, 128,
+                                  device=cuda_device), bias[:144], 2)
+    with pytest.raises(RuntimeError, match="no backward"):
+        w2v_ops.pos_conv_gelu(x, weight.requires_grad_(), bias, groups)
+    assert float(torch.ones(8, device=cuda_device).sum()) == 8.0
+    torch.cuda.synchronize()
+    assert w2v_ops.pos_conv_gelu.launches == 3
+
+
+def test_pos_conv_smem_plan_matches_the_kernel(cuda_device):
+    """The wrapper's shared-memory sizes, which its tile plan reads, are the
+    .cu file's own."""
+    import ctypes
+
+    from robust_speech_analysis_framework_tpu_torch.ops.cuda import _build
+    from robust_speech_analysis_framework_tpu_torch.ops.cuda import wav2vec2 as w2v_ops
+
+    fn = _build.load("pos_conv").pos_conv_gelu_smem_bytes
+    fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_longlong
+    for cg in (8, 48, 64):
+        for kp in (16, 128):
+            for tile in w2v_ops.POS_TILES:
+                assert fn(cg, kp, tile) == w2v_ops.pos_conv_smem_bytes(cg, kp, tile)
+
+
+@pytest.mark.parametrize("encoder", ["wav2vec2", "wavlm"])
+def test_encoder_on_card_matches_cpu_and_runs_the_pos_conv_kernel(cuda_device, encoder):
+    """Two layers of each encoder at its published width (Wav2Vec2-base's
+    768 channels in groups of 48, WavLM-Large's 1024 in groups of 64):
+    hidden states on the card against the CPU on valid frames, one
+    positional-conv launch a forward."""
+    from robust_speech_analysis_framework_tpu_torch.models.init import init_weights_
+    from robust_speech_analysis_framework_tpu_torch.models.wav2vec2 import (
+        Wav2Vec2Config,
+        Wav2Vec2Model,
+    )
+    from robust_speech_analysis_framework_tpu_torch.models.wavlm import WavLMConfig, WavLMModel
+    from robust_speech_analysis_framework_tpu_torch.ops.cuda import wav2vec2 as w2v_ops
+
+    if encoder == "wav2vec2":
+        cpu = Wav2Vec2Model(Wav2Vec2Config(num_layers=2))
+    else:
+        cpu = WavLMModel(WavLMConfig(num_layers=2))
+    init_weights_(cpu, torch.Generator().manual_seed(1))
+    cpu = cpu.eval()
+    card = copy.deepcopy(cpu).to(cuda_device)
+    rng = np.random.default_rng(8)
+    lengths = np.array([24_000, 8_000, 17_003], np.int32)
+    wav = (0.1 * rng.normal(size=(3, 24_000))).astype(np.float32)
+    for i, n in enumerate(lengths):
+        wav[i, n:] = 0.0
+    before = w2v_ops.pos_conv_gelu.launches
+    with torch.no_grad():
+        ref, ref_lens = cpu(torch.from_numpy(wav), torch.from_numpy(lengths))
+        got, got_lens = card(torch.from_numpy(wav).to(cuda_device),
+                             torch.from_numpy(lengths).to(cuda_device))
+    assert w2v_ops.pos_conv_gelu.launches == before + 1
     np.testing.assert_array_equal(got_lens.cpu().numpy(), ref_lens.numpy())
     for i, n in enumerate(ref_lens.tolist()):
         np.testing.assert_allclose(got[i, :n].cpu().numpy(), ref[i, :n].numpy(), rtol=0,

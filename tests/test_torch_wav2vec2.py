@@ -368,3 +368,168 @@ def test_conv0_plain_version_in_bfloat16_equals_the_former_inline_block(masked):
     got = conv0_norm_gelu_reference(wav, weight, scale, bias, lengths, 1e-5, cdt=torch.bfloat16)
     assert got.dtype == torch.float32
     assert torch.equal(got, former)
+
+
+# --- the positional conv: plain version, the kernel's arithmetic, dispatch ---------------
+
+POS_CASES = {  # (B, T, C, groups, K, valid frames of each row or None)
+    "cg48": (3, 61, 96, 2, 128, (61, 40, 0)),
+    "cg64": (2, 45, 128, 2, 128, (45, 17)),
+    "small": (3, 30, 32, 4, 16, (30, 11, 1)),
+}
+
+
+def _pos_conv_inputs(seed, b, t, c, groups, k, frames):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(b, t, c))
+    for i, n in enumerate(frames or ()):
+        x[i, n:] = 0.0  # padded frames, zeroed as the encoder zeroes them
+    f32 = lambda a: torch.from_numpy(np.asarray(a, np.float32))  # noqa: E731
+    cg = c // groups
+    return f32(x), f32(rng.normal(size=(c, cg, k)) / np.sqrt(cg * k)), f32(0.1 * rng.normal(size=c))
+
+
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("masked", [True, False], ids=["zeroed-tails", "no-padding"])
+@pytest.mark.parametrize("case", sorted(POS_CASES))
+def test_pos_conv_plain_version_equals_the_former_inline_code(case, masked, cdt):
+    """The plain version gives the encoder's former inline positional conv
+    (conv1d in the compute dtype, the extra frame dropped, GELU, transpose)
+    bit for bit; on CPU tensors the float32 wrapper is the plain version."""
+    from robust_speech_analysis_framework_tpu_torch.device import conv1d
+    from robust_speech_analysis_framework_tpu_torch.ops.cuda.wav2vec2 import (
+        pos_conv_gelu,
+        pos_conv_gelu_reference,
+    )
+
+    b, t, c, groups, k, frames = POS_CASES[case]
+    x, weight, bias = _pos_conv_inputs(20, b, t, c, groups, k, frames if masked else None)
+    h = conv1d(x.transpose(1, 2), weight, bias, cdt, padding=(k // 2,), groups=groups).float()
+    former = torch.nn.functional.gelu(h[:, :, :t]).transpose(1, 2)
+    got = pos_conv_gelu_reference(x, weight, bias, groups, cdt=cdt)
+    assert got.shape == (b, t, c) and got.dtype == torch.float32
+    assert torch.equal(got, former)
+    if cdt == torch.float32:
+        assert torch.equal(pos_conv_gelu(x, weight, bias, groups), former)
+
+
+@pytest.mark.parametrize("b,t,c,groups,k", [(2, 61, 96, 2, 128), (2, 45, 128, 2, 128),
+                                            (1, 1, 64, 2, 128), (3, 5, 32, 4, 16),
+                                            (2, 9, 16, 2, 15), (1, 20, 24, 1, 18)])
+def test_pos_conv_kernel_layout_and_window_emulated(b, t, c, groups, k):
+    """The kernel's arithmetic in float64: its weights as the wrapper lays
+    them out ((G, Kp, in, out), zero taps up to a multiple of 4) against the
+    window of frames t − K // 2 … t − K // 2 + Kp − 1 (zero outside the row)
+    give the plain version's output (odd K, K not a multiple of 4, T = 1,
+    T below K)."""
+    from robust_speech_analysis_framework_tpu_torch.ops.cuda.wav2vec2 import (
+        POS_TAPS,
+        _pos_conv_weights,
+        pos_conv_gelu_reference,
+    )
+
+    x, weight, bias = _pos_conv_inputs(21, b, t, c, groups, k, None)
+    wt = _pos_conv_weights(weight, groups)
+    cg, kp = c // groups, -(-k // POS_TAPS) * POS_TAPS
+    assert wt.shape == (groups, kp, cg, cg) and wt.is_contiguous()
+    assert torch.all(wt[:, k:] == 0)
+    xp = torch.nn.functional.pad(x.double(), (0, 0, k // 2, kp))
+    win = xp.unfold(1, kp, 1)[:, :t].reshape(b, t, groups, cg, kp)  # [b, t, g, i, tap]
+    y = torch.einsum("btgik,gkio->btgo", win, wt.double()).reshape(b, t, c) + bias.double()
+    emulated = torch.nn.functional.gelu(y)
+    ref = pos_conv_gelu_reference(x, weight, bias, groups).double()
+    assert float((emulated - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+def test_pos_conv_tile_plan():
+    """Every planned tile fits a block's shared memory and covers the row;
+    a wider group or a longer kernel never plans a block that does not fit."""
+    from robust_speech_analysis_framework_tpu_torch.ops.cuda.wav2vec2 import (
+        POS_TILES,
+        SMEM_BLOCK,
+        pos_conv_smem_bytes,
+        pos_conv_tile,
+    )
+
+    for b, t, groups, cg, kp in [(16, 249, 16, 48, 128), (16, 799, 16, 64, 128),
+                                 (1, 249, 16, 48, 128), (1, 1, 16, 64, 128), (3, 30, 4, 8, 16),
+                                 (64, 5000, 16, 64, 128), (2, 63, 1, 64, 256)]:
+        tile = pos_conv_tile(b, t, groups, cg, kp, 132)
+        assert tile in POS_TILES and pos_conv_smem_bytes(cg, kp, tile) <= SMEM_BLOCK
+    with pytest.raises(ValueError, match="fits"):
+        pos_conv_tile(1, 10, 1, 64, 1024, 132)
+
+
+def test_pos_conv_wrapper_guards():
+    from robust_speech_analysis_framework_tpu_torch.ops.cuda.wav2vec2 import pos_conv_gelu
+
+    x, weight, bias = _pos_conv_inputs(22, *POS_CASES["small"])
+    with pytest.raises(ValueError, match=r"\(B, T, C\)"):
+        pos_conv_gelu(x[0], weight, bias, 4)
+    with pytest.raises(ValueError, match="do not divide"):
+        pos_conv_gelu(x, weight, bias, 5)
+    with pytest.raises(ValueError, match="expected weight"):
+        pos_conv_gelu(x, weight, bias, 2)
+    with pytest.raises(ValueError, match="bias"):
+        pos_conv_gelu(x, weight, bias[:8], 4)
+    with pytest.raises(TypeError, match="float32"):
+        pos_conv_gelu(x.double(), weight, bias, 4)
+    with pytest.raises(ValueError, match="unsupported device"):
+        pos_conv_gelu(x.to("meta"), weight.to("meta"), bias.to("meta"), 4)
+
+
+def test_pos_conv_dispatch_keeps_cpu_tensors_off_the_build(monkeypatch, port_model):
+    """On CPU tensors the positional conv's wrapper, and the float32 encoder
+    through it, never reach the CUDA build or count a launch."""
+    from robust_speech_analysis_framework_tpu_torch.ops.cuda import _build
+    from robust_speech_analysis_framework_tpu_torch.ops.cuda import wav2vec2 as w2v_ops
+
+    def no_build(*args, **kwargs):
+        raise AssertionError("a CPU tensor reached the CUDA build")
+
+    for name in ("load", "call"):
+        monkeypatch.setattr(_build, name, no_build)
+    for name in ("_call", "_load", "_launch_pos_conv"):
+        monkeypatch.setattr(w2v_ops, name, no_build)
+    before = w2v_ops.pos_conv_gelu.launches
+    x, weight, bias = _pos_conv_inputs(23, *POS_CASES["small"])
+    with torch.no_grad():
+        w2v_ops.pos_conv_gelu(x, weight, bias, 4)
+        port_model(torch.zeros(2, 8000), torch.tensor([8000, 6000], dtype=torch.int32))
+    assert w2v_ops.pos_conv_gelu.launches == before
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_positional_conv_routes_by_compute_dtype(monkeypatch, compute_dtype):
+    """float32 takes ``pos_conv_gelu`` (the kernel on the card); the bfloat16
+    preset takes the plain version with its conv in bfloat16 (cuDNN's
+    arithmetic, as before). The module's output is the former inline code's."""
+    from robust_speech_analysis_framework_tpu_torch.device import conv1d
+    from robust_speech_analysis_framework_tpu_torch.models import wav2vec2 as w2v_model
+
+    calls = {"kernel": 0, "plain": []}
+    kernel, plain = w2v_model.pos_conv_gelu, w2v_model.pos_conv_gelu_reference
+
+    def spy_kernel(*args, **kwargs):
+        calls["kernel"] += 1
+        return kernel(*args, **kwargs)
+
+    def spy_plain(*args, **kwargs):
+        calls["plain"].append(kwargs["cdt"])
+        return plain(*args, **kwargs)
+
+    monkeypatch.setattr(w2v_model, "pos_conv_gelu", spy_kernel)
+    monkeypatch.setattr(w2v_model, "pos_conv_gelu_reference", spy_plain)
+    torch.manual_seed(0)
+    cfg = Wav2Vec2Config(**SMALL, compute_dtype=compute_dtype)
+    module = w2v_model.PositionalConvEmbedding(cfg)
+    x, _, _ = _pos_conv_inputs(24, 2, 33, 32, 4, 16, (33, 20))
+    with torch.no_grad():
+        got = module(x)
+        conv = module.conv
+        h = conv1d(x.transpose(1, 2), conv.weight, conv.bias, cfg.cdtype, padding=conv.padding,
+                   groups=conv.groups).float()
+        former = torch.nn.functional.gelu(h[:, :, :33]).transpose(1, 2)
+    assert torch.equal(got, former)
+    assert calls == ({"kernel": 1, "plain": []} if compute_dtype == "float32"
+                     else {"kernel": 0, "plain": [torch.bfloat16]})
