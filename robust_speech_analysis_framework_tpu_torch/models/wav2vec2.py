@@ -34,13 +34,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..device import conv1d
-from ..ops.cuda.wav2vec2 import (
-    channel_norm_gelu,
-    conv0_norm_gelu,
-    conv0_norm_gelu_reference,
-    pos_conv_gelu,
-    pos_conv_gelu_reference,
-)
+from ..ops.cuda import wav2vec2 as w2v_ops
+from ..ops.cuda.wav2vec2 import channel_norm_gelu, conv0_norm_gelu, pos_conv_gelu
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,13 +94,9 @@ class FeatureEncoder(nn.Module):
                 cur_lengths = torch.div(cur_lengths - k, s, rounding_mode="floor") + 1
             if i > 0:
                 h = F.gelu(conv1d(h, getattr(self, f"conv_{i}").weight, None, cdt, stride=s))
-            elif cdt == torch.float32:  # the hand-written kernel on the card
+            else:  # the wrapper picks the kernel or its plain version by device and cdt
                 h = conv0_norm_gelu(waveform, self.conv_0.weight, self.gn_scale, self.gn_bias,
-                                    cur_lengths, cfg.layer_norm_eps, stride=s)
-            else:
-                h = conv0_norm_gelu_reference(waveform, self.conv_0.weight, self.gn_scale,
-                                              self.gn_bias, cur_lengths, cfg.layer_norm_eps,
-                                              stride=s, cdt=cdt)
+                                    cur_lengths, cfg.layer_norm_eps, stride=s, cdt=cdt)
         return h.float().transpose(1, 2), cur_lengths
 
 
@@ -140,10 +131,8 @@ class PositionalConvEmbedding(nn.Module):
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        conv = self.conv
-        if self.cdtype == torch.float32:  # the hand-written kernel on the card
-            return pos_conv_gelu(x, conv.weight, conv.bias, conv.groups)
-        return pos_conv_gelu_reference(x, conv.weight, conv.bias, conv.groups, cdt=self.cdtype)
+        conv = self.conv  # the wrapper picks the kernel or its plain version by device and cdt
+        return pos_conv_gelu(x, conv.weight, conv.bias, conv.groups, cdt=self.cdtype)
 
 
 class EncoderLayer(nn.Module):
@@ -349,22 +338,20 @@ class ShardedWav2Vec2:
         return h, cur
 
     def _pos_conv(self, r: int, x: torch.Tensor) -> torch.Tensor:
-        cfg = self.config
-        cdt, groups, pad = cfg.cdtype, cfg.pos_conv_groups, cfg.pos_conv_kernel // 2
-        xt = x.transpose(1, 2)
-        mp = self.mesh.mp
+        """The positional conv's plain version (cuDNN's per slice), whole or,
+        where a device's output channels are whole groups, on each device
+        over its channels' inputs only (GELU acts element by element)."""
+        cdt, groups, mp = self.config.cdtype, self.config.pos_conv_groups, self.mesh.mp
         if self.spec["pos_conv.conv.weight"] is None or groups % mp:
-            h = conv1d(xt, self._whole(r, "pos_conv.conv.weight"),
-                       self._whole(r, "pos_conv.conv.bias"), cdt, padding=pad, groups=groups)
-        else:  # a device's output channels are whole groups: it reads their inputs only
-            devs = self.mesh.rows[r]
-            ins = xt.chunk(mp, 1)
-            h = torch.cat([
-                conv1d(ins[c].to(dev), self._part(r, c, "pos_conv.conv.weight"),
-                       self._part(r, c, "pos_conv.conv.bias"), cdt, padding=pad,
-                       groups=groups // mp).to(devs[0])
-                for c, dev in enumerate(devs)], 1)
-        return F.gelu(h.float()[:, :, : x.shape[1]]).transpose(1, 2)
+            return w2v_ops.pos_conv_gelu_reference(
+                x, self._whole(r, "pos_conv.conv.weight"), self._whole(r, "pos_conv.conv.bias"),
+                groups, cdt)
+        devs = self.mesh.rows[r]
+        return torch.cat([
+            w2v_ops.pos_conv_gelu_reference(
+                part.to(dev), self._part(r, c, "pos_conv.conv.weight"),
+                self._part(r, c, "pos_conv.conv.bias"), groups // mp, cdt).to(devs[0])
+            for c, (part, dev) in enumerate(zip(x.chunk(mp, 2), devs))], 2)
 
     def _layer(self, r: int, pre: str, x: torch.Tensor,
                attn_bias: torch.Tensor) -> torch.Tensor:

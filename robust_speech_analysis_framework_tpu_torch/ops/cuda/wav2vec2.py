@@ -17,8 +17,8 @@ and its masked channel norm); there is no Pallas kernel behind it.
 * :func:`conv0_norm_gelu_reference`: the same block as the encoder ran it
   before the kernel, the conv in the compute dtype (cuDNN's or the CPU's,
   IEEE float32 for float32) and :func:`channel_norm_gelu` over its output.
-  The bfloat16 preset runs it on every device; ``ShardedWav2Vec2`` at
-  mp > 1 calls :func:`channel_norm_gelu` after gathering its conv's slices.
+  ``ShardedWav2Vec2`` at mp > 1 calls :func:`channel_norm_gelu` after
+  gathering its conv's slices.
 
 The positional conv embedding is a grouped conv over the hidden states (C
 channels in G groups, K taps, K // 2 frames of zero padding a side), its
@@ -32,10 +32,12 @@ XLA too (its grouped ``nn.Conv``), and WavLM reuses it.
 * :func:`pos_conv_gelu_reference`: the positional conv as the encoder ran
   it before the kernel: the conv in the compute dtype through
   :func:`..device.conv1d`, the extra frame of an even kernel dropped, GELU,
-  a (B, T, C) view. The bfloat16 preset runs it on every device.
+  a (B, T, C) view. ``ShardedWav2Vec2`` at mp > 1 calls it per device.
 
-Dispatch goes by the tensors' device: CPU tensors take the plain version,
-CUDA tensors launch the kernel or raise. There is no fallback between them.
+The wrappers make the whole choice, by one rule (:func:`_uses_kernel`):
+float32 (``cdt``, the compute dtype) on CUDA tensors launches the kernel or
+raises; CPU tensors, or any other ``cdt``, take the plain version at ``cdt``;
+any other device raises. There is no fallback between them.
 ``conv0_norm_gelu.launches`` counts the first block's calls (two launches
 each), ``pos_conv_gelu.launches`` the positional conv's launches.
 """
@@ -107,6 +109,17 @@ def conv0_norm_gelu_reference(
     return channel_norm_gelu(h, lengths, gn_scale, gn_bias, eps)
 
 
+def _uses_kernel(device: torch.device, cdt: torch.dtype) -> bool:
+    """Whether a wrapper launches its kernel on ``device`` at compute dtype
+    ``cdt``: float32 on CUDA does; the CPU, or any other ``cdt``, takes the
+    plain version; float32 on any other device raises."""
+    if device.type == "cpu" or cdt != torch.float32:
+        return False
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    return True
+
+
 def _check(wav, weight, gn_scale, gn_bias, lengths, stride) -> None:
     if wav.ndim != 2 or weight.ndim != 3 or weight.shape[1] != 1:
         raise ValueError(f"expected wav (B, L) and weight (C, 1, K), got {tuple(wav.shape)}, "
@@ -128,15 +141,15 @@ def _check(wav, weight, gn_scale, gn_bias, lengths, stride) -> None:
 def conv0_norm_gelu(
     wav: torch.Tensor, weight: torch.Tensor, gn_scale: torch.Tensor, gn_bias: torch.Tensor,
     lengths: Optional[torch.Tensor], eps: float, stride: int = STRIDE,
+    cdt: torch.dtype = torch.float32,
 ) -> torch.Tensor:
     """conv_0 → masked channel norm → affine → GELU: (B, L) → (B, C, T)
-    float32, as :func:`conv0_norm_gelu_reference`. Inference only: the
-    kernel has no backward."""
+    float32, as :func:`conv0_norm_gelu_reference` at ``cdt``. Inference
+    only: the kernel has no backward."""
     _check(wav, weight, gn_scale, gn_bias, lengths, stride)
-    if wav.device.type == "cpu":
-        return conv0_norm_gelu_reference(wav, weight, gn_scale, gn_bias, lengths, eps, stride)
-    if wav.device.type != "cuda":
-        raise ValueError(f"unsupported device {wav.device}")
+    if not _uses_kernel(wav.device, cdt):
+        return conv0_norm_gelu_reference(wav, weight, gn_scale, gn_bias, lengths, eps, stride,
+                                         cdt)
     b, n = wav.shape
     c, _, k = weight.shape
     if k != TAPS or stride != STRIDE:
@@ -248,15 +261,13 @@ def _launch_pos_conv(x: torch.Tensor, wt: torch.Tensor, bias: torch.Tensor, out:
 
 
 def pos_conv_gelu(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-                  groups: int) -> torch.Tensor:
+                  groups: int, cdt: torch.dtype = torch.float32) -> torch.Tensor:
     """GELU of the grouped positional conv: (B, T, C) → (B, T, C) float32,
-    as :func:`pos_conv_gelu_reference`. Inference only: the kernel has no
-    backward."""
+    as :func:`pos_conv_gelu_reference` at ``cdt``. Inference only: the
+    kernel has no backward."""
     _check_pos(x, weight, bias, groups)
-    if x.device.type == "cpu":
-        return pos_conv_gelu_reference(x, weight, bias, groups)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
+    if not _uses_kernel(x.device, cdt):
+        return pos_conv_gelu_reference(x, weight, bias, groups, cdt)
     b, t, c = x.shape
     cg, k = c // groups, weight.shape[2]
     if cg % POS_LANES or cg > POS_MAX_GROUP:

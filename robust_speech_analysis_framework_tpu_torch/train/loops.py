@@ -44,9 +44,9 @@ Where it differs from the JAX package, by design:
   nothing and the host sits beside the card: both paths here share ONE host
   epoch loop (:func:`_run_epochs`) and differ only in where a batch comes
   from. One fetch an epoch (the losses) stays on both. So
-  ``train/aot_cache.py``, ``_warmup_step_shapes`` and ``parallel_warmup``
-  have nothing to do here: no program is compiled per shape, and the CUDA
-  kernels are built once, at first use.
+  ``train/aot_cache.py`` and ``_warmup_step_shapes`` have nothing to do
+  here: no program is compiled per shape, and the CUDA kernels are built
+  once, at first use.
 * The JAX resident fold restores only the parameters and BatchNorm
   statistics of the best epoch, its streaming path the whole best state;
   here both restore model, optimizer and rate (:func:`_restore`). A restored
@@ -123,8 +123,6 @@ class TrainConfig:
     # instead of storing its activations: same numbers, less memory, about
     # one more forward of compute
     remat: bool = False
-    # kept for the JAX package's signature: nothing to warm up here
-    parallel_warmup: bool = True
     # Device-resident fold: batches are gathered on the device from one
     # padded tensor instead of being padded on the host and uploaded. "auto"
     # takes it when train and val are views of one DeviceCorpus or when the

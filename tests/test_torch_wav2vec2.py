@@ -310,33 +310,45 @@ def test_conv0_dispatch_keeps_cpu_tensors_off_the_build(monkeypatch, port_model)
     assert w2v_ops.conv0_norm_gelu.launches == before
 
 
+def _spy_routes(monkeypatch, plain_name: str) -> dict:
+    """Spies inside ``ops/cuda/wav2vec2.py``: each routing decision (device
+    type, compute dtype, whether the kernel would launch on a CUDA tensor)
+    and the compute dtype of each call of the plain version ``plain_name``."""
+    from robust_speech_analysis_framework_tpu_torch.ops.cuda import wav2vec2 as w2v_ops
+
+    calls = {"route": [], "plain": []}
+    route, plain = w2v_ops._uses_kernel, getattr(w2v_ops, plain_name)
+
+    def spy_route(device, cdt):
+        calls["route"].append((device.type, cdt, route(torch.device("cuda"), cdt)))
+        return route(device, cdt)
+
+    def spy_plain(*args):
+        calls["plain"].append(args[-1])
+        return plain(*args)
+
+    monkeypatch.setattr(w2v_ops, "_uses_kernel", spy_route)
+    monkeypatch.setattr(w2v_ops, plain_name, spy_plain)
+    return calls
+
+
 @pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
 def test_feature_encoder_routes_its_first_block_by_compute_dtype(monkeypatch, compute_dtype):
-    """float32 runs the first block through ``conv0_norm_gelu`` (the kernel
-    on the card) and the other convs through ``conv1d``; the bfloat16 preset
-    runs its first block's plain version, its conv in bfloat16, and the
-    other convs through ``conv1d``."""
+    """The encoder hands its compute dtype to ``conv0_norm_gelu``, which
+    decides: float32 takes the kernel on a CUDA tensor (the plain version on
+    the CPU), the bfloat16 preset its first block's plain version with its
+    conv in bfloat16; the other convs go through ``conv1d``."""
     from robust_speech_analysis_framework_tpu_torch.models import wav2vec2 as w2v_model
 
-    calls = {"conv": 0, "block": 0, "plain": []}
-    conv, block, plain = (w2v_model.conv1d, w2v_model.conv0_norm_gelu,
-                          w2v_model.conv0_norm_gelu_reference)
+    calls = _spy_routes(monkeypatch, "conv0_norm_gelu_reference")
+    calls["conv"] = 0
+    conv = w2v_model.conv1d
 
     def spy_conv(*args, **kwargs):
         calls["conv"] += 1
         return conv(*args, **kwargs)
 
-    def spy_block(*args, **kwargs):
-        calls["block"] += 1
-        return block(*args, **kwargs)
-
-    def spy_plain(*args, **kwargs):
-        calls["plain"].append(kwargs["cdt"])
-        return plain(*args, **kwargs)
-
     monkeypatch.setattr(w2v_model, "conv1d", spy_conv)
-    monkeypatch.setattr(w2v_model, "conv0_norm_gelu", spy_block)
-    monkeypatch.setattr(w2v_model, "conv0_norm_gelu_reference", spy_plain)
     torch.manual_seed(0)
     encoder = w2v_model.FeatureEncoder(Wav2Vec2Config(**SMALL, compute_dtype=compute_dtype))
     wav = torch.from_numpy((0.1 * np.random.default_rng(12).normal(size=(2, 6000)))
@@ -344,8 +356,9 @@ def test_feature_encoder_routes_its_first_block_by_compute_dtype(monkeypatch, co
     with torch.no_grad():
         feats, lens = encoder(wav, torch.tensor([6000, 4100], dtype=torch.int32))
     assert feats.shape == (2, Wav2Vec2Config(**SMALL).output_length(6000), 16)
-    assert calls == ({"conv": 6, "block": 1, "plain": []} if compute_dtype == "float32"
-                     else {"conv": 6, "block": 0, "plain": [torch.bfloat16]})
+    cdt = torch.float32 if compute_dtype == "float32" else torch.bfloat16
+    assert calls == {"conv": 6, "route": [("cpu", cdt, compute_dtype == "float32")],
+                     "plain": [cdt]}
 
 
 @pytest.mark.parametrize("masked", [True, False], ids=["lengths", "no-lengths"])
@@ -501,25 +514,15 @@ def test_pos_conv_dispatch_keeps_cpu_tensors_off_the_build(monkeypatch, port_mod
 
 @pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
 def test_positional_conv_routes_by_compute_dtype(monkeypatch, compute_dtype):
-    """float32 takes ``pos_conv_gelu`` (the kernel on the card); the bfloat16
-    preset takes the plain version with its conv in bfloat16 (cuDNN's
-    arithmetic, as before). The module's output is the former inline code's."""
+    """The module hands its compute dtype to ``pos_conv_gelu``, which
+    decides: float32 takes the kernel on a CUDA tensor (the plain version on
+    the CPU), the bfloat16 preset the plain version with its conv in
+    bfloat16 (cuDNN's arithmetic, as before). The module's output is the
+    former inline code's."""
     from robust_speech_analysis_framework_tpu_torch.device import conv1d
     from robust_speech_analysis_framework_tpu_torch.models import wav2vec2 as w2v_model
 
-    calls = {"kernel": 0, "plain": []}
-    kernel, plain = w2v_model.pos_conv_gelu, w2v_model.pos_conv_gelu_reference
-
-    def spy_kernel(*args, **kwargs):
-        calls["kernel"] += 1
-        return kernel(*args, **kwargs)
-
-    def spy_plain(*args, **kwargs):
-        calls["plain"].append(kwargs["cdt"])
-        return plain(*args, **kwargs)
-
-    monkeypatch.setattr(w2v_model, "pos_conv_gelu", spy_kernel)
-    monkeypatch.setattr(w2v_model, "pos_conv_gelu_reference", spy_plain)
+    calls = _spy_routes(monkeypatch, "pos_conv_gelu_reference")
     torch.manual_seed(0)
     cfg = Wav2Vec2Config(**SMALL, compute_dtype=compute_dtype)
     module = w2v_model.PositionalConvEmbedding(cfg)
@@ -531,5 +534,64 @@ def test_positional_conv_routes_by_compute_dtype(monkeypatch, compute_dtype):
                    groups=conv.groups).float()
         former = torch.nn.functional.gelu(h[:, :, :33]).transpose(1, 2)
     assert torch.equal(got, former)
-    assert calls == ({"kernel": 1, "plain": []} if compute_dtype == "float32"
-                     else {"kernel": 0, "plain": [torch.bfloat16]})
+    cdt = torch.float32 if compute_dtype == "float32" else torch.bfloat16
+    assert calls == {"route": [("cpu", cdt, compute_dtype == "float32")], "plain": [cdt]}
+
+
+def test_the_kernel_or_plain_rule():
+    """One rule decides both wrappers' route: the kernel for float32 on a
+    CUDA device; the plain version on the CPU or at any other compute dtype
+    (whatever the device); float32 elsewhere raises."""
+    from robust_speech_analysis_framework_tpu_torch.ops.cuda.wav2vec2 import _uses_kernel
+
+    cuda, cpu, meta = torch.device("cuda"), torch.device("cpu"), torch.device("meta")
+    assert _uses_kernel(cuda, torch.float32)
+    assert not any(_uses_kernel(d, c) for d, c in [(cuda, torch.bfloat16), (cpu, torch.float32),
+                                                    (cpu, torch.bfloat16), (meta, torch.bfloat16)])
+    with pytest.raises(ValueError, match="unsupported device"):
+        _uses_kernel(meta, torch.float32)
+
+
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("block", ["conv0", "pos_conv"])
+def test_wrappers_at_a_compute_dtype_equal_their_plain_versions(block, cdt):
+    """On CPU tensors ``conv0_norm_gelu(..., cdt=)`` and ``pos_conv_gelu(...,
+    cdt=)`` give their plain versions at that compute dtype bit for bit."""
+    from robust_speech_analysis_framework_tpu_torch.ops.cuda import wav2vec2 as w2v_ops
+
+    if block == "conv0":
+        wav, frames, weight, scale, bias = _conv0_inputs(31)
+        args = (wav, weight, scale, bias, frames, 1e-5)
+        got = w2v_ops.conv0_norm_gelu(*args, cdt=cdt)
+        want = w2v_ops.conv0_norm_gelu_reference(*args, cdt=cdt)
+    else:
+        x, weight, bias = _pos_conv_inputs(32, *POS_CASES["small"])
+        got = w2v_ops.pos_conv_gelu(x, weight, bias, 4, cdt=cdt)
+        want = w2v_ops.pos_conv_gelu_reference(x, weight, bias, 4, cdt=cdt)
+    assert got.dtype == torch.float32 and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("groups", [1, 4], ids=["whole", "split-by-groups"])
+def test_sharded_positional_conv_equals_the_plain_version(groups, cdt):
+    """``ShardedWav2Vec2._pos_conv`` on a dp 1 × mp 2 grid over the CPU: whole
+    (1 group does not split over 2 devices) and split by whole groups (each
+    device its 2 of 4 groups' channels), bit for bit the plain version."""
+    from robust_speech_analysis_framework_tpu_torch.models.wav2vec2 import ShardedWav2Vec2
+    from robust_speech_analysis_framework_tpu_torch.ops.cuda.wav2vec2 import (
+        pos_conv_gelu_reference,
+    )
+    from robust_speech_analysis_framework_tpu_torch.parallel import make_mesh
+
+    compute_dtype = "float32" if cdt == torch.float32 else "bfloat16"
+    torch.manual_seed(0)
+    model = Wav2Vec2Model(Wav2Vec2Config(**dict(SMALL, pos_conv_groups=groups),
+                                         compute_dtype=compute_dtype))
+    sharded = ShardedWav2Vec2(model, make_mesh(devices=[torch.device("cpu")] * 2, mp=2))
+    assert (sharded.spec["pos_conv.conv.weight"] is not None) and sharded.mesh.mp == 2
+    x, _, _ = _pos_conv_inputs(33, 2, 37, 32, groups, 16, (37, 20))
+    conv = model.pos_conv.conv
+    with torch.no_grad():
+        got = sharded._pos_conv(0, x)
+        want = pos_conv_gelu_reference(x, conv.weight, conv.bias, groups, cdt)
+    assert got.shape == (2, 37, 32) and torch.equal(got, want)
