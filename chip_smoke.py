@@ -4,6 +4,7 @@
     python3 chip_smoke.py --march [DIR]          # phase 8's period march
     python3 chip_smoke.py --train-kernels [DIR]  # phase 3's training and lanes kernels
     python3 chip_smoke.py --conv0                # phase 8's Wav2Vec2 first block
+    python3 chip_smoke.py --featconv             # phase 8's strided convs, encoder batches
     python3 chip_smoke.py --posconv              # phase 8's positional conv, encoder batches
     python3 chip_smoke.py --wavlm                # phase 8's WavLM part and phase 15
 
@@ -22,10 +23,10 @@ docstring says what it checks):
 5. serving, the main path (``serving_phase``);
 6. training, the second main path (``training_phase``);
 7. train-step parity, card against CPU (``parity_phase``);
-8. K6/K7, the period march, Wav2Vec2's first block and positional conv and
-   WavLM's biased softmax against their plain versions
+8. K6/K7, the period march, Wav2Vec2's first block, strided convs and
+   positional conv and WavLM's biased softmax against their plain versions
    (``viterbi_kernel_phase``, ``march_kernel_phase``, ``conv0_kernel_phase``,
-   ``posconv_kernel_phase``, ``wavlm_kernel_phase``);
+   ``featconv_kernel_phase``, ``posconv_kernel_phase``, ``wavlm_kernel_phase``);
 9. checkpoint and openSMILE, the third main path (``checkpoint_phase``,
    ``opensmile_phase``);
 10. cv, both CV engines and the lane-batched trials (``cv_phase``);
@@ -63,6 +64,7 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from robust_speech_analysis_framework_tpu_torch.audio.io import write_wav
 from robust_speech_analysis_framework_tpu_torch.eval import dl_cv
@@ -176,6 +178,16 @@ POSCONV_SHAPES = {
     "wavlm-large": ((16, 799, 1024, 16, 128), (799,) * 12 + (649, 400, 150, 24)),
 }
 POSCONV_SERVING = (1, 249, 768, 16, 128)  # one 5 s chunk: a short request
+FEATCONV_SOURCE = "robust_speech_analysis_framework_tpu_torch/csrc/feature_conv.cu"
+JAX_FEATCONV = "robust_speech_analysis_framework_tpu/models/wav2vec2.py:101"
+# conv_1 ... conv_6 of each encoder: (B, conv_0's output frames, channels, GELU
+# fused (group mode) or not (layer mode)) at an extraction batch and one chunk
+FEATCONV_CASES = {
+    "wav2vec2-base": (16, 15_999, 512, True),  # 16 x 80,000 samples
+    "wavlm-large": (16, 51_199, 512, False),  # 16 x 256,000 samples
+    "serving": (1, 15_999, 512, True),  # one 5 s chunk
+}
+FEATCONV_TAPS = ((3, 2),) * 4 + ((2, 2),) * 2  # (K, stride) of conv_1 ... conv_6
 PALLAS = "robust_speech_analysis_framework_tpu/ops/pallas/lstm.py"
 PALLAS_VITERBI = "robust_speech_analysis_framework_tpu/ops/pallas/viterbi.py"
 
@@ -230,6 +242,24 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps: int) -> float:
+    """Device time of ``fn``, per run, over a CUDA graph of ``reps`` runs
+    captured after one warm-up: the host's cost of each call (Python, the
+    wrapper, the launch) is left out, which ``cuda_ms`` counts whenever it
+    exceeds the device time of a call."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    ms = cuda_ms(graph.replay, 3) / reps
+    del graph
+    return ms
+
+
 # What one unit of work launches, kernel by kernel. A width that the unit's
 # config sets is named by its attribute there (``check_launches``'s config).
 LSTM_LAYERS = 2  # every CNN-LSTM here: build_cnn_lstm's and the search space's
@@ -240,9 +270,10 @@ UNIT_LAUNCHES = {
     "cnnlstm-eval": {"lstm_scan_grouped": LSTM_LAYERS},
     # a train step (of one model or of its lanes): K3, K4, its pre-pass and dWh, likewise
     "cnnlstm-step": dict.fromkeys(STEP_KERNELS, LSTM_LAYERS),
-    "w2v2-batch": {"conv0_norm_gelu": 1, "pos_conv_gelu": 1},  # a float32 encoder batch
+    # a float32 encoder batch: conv_1 ... conv_6 one launch each
+    "w2v2-batch": {"conv0_norm_gelu": 1, "feature_conv": 6, "pos_conv_gelu": 1},
     "w2v2-batch-bf16": {},
-    "wavlm-batch": {"pos_conv_gelu": 1, "relpos_softmax": "num_layers"},
+    "wavlm-batch": {"feature_conv": 6, "pos_conv_gelu": 1, "relpos_softmax": "num_layers"},
     "opensmile-sub-batch": {"viterbi_forward_costs": 1, "viterbi_path": 1, "march_periods": 1},
     "mshds-pitch-pass": {"viterbi_forward_costs": 1, "viterbi_path": 1},
 }
@@ -1743,12 +1774,12 @@ def posconv_kernel_phase(dev: torch.device) -> dict:
     return {"pos_conv_gelu": rec}
 
 
-def posconv_encoder_batches(dev: torch.device) -> dict:
+def encoder_batches(dev: torch.device, tag: str, swaps: tuple) -> dict:
     """One encoder batch of each model (Wav2Vec2-base at 16 × 5 s, WavLM-Large
-    at 16 × 16 s, float32, random weights) with the positional conv's kernel
-    and with its plain version in its place, turn about: device ms each, the
-    batch's launches (one encoder-batch unit), and a profile of the batch
-    with the kernel."""
+    at 16 × 16 s, float32, random weights) with the kernels and with the plain
+    versions of ``swaps`` ((module, name, plain version) each) in their place,
+    turn about: device ms each, the batch's launches (one encoder-batch unit),
+    and a profile of the batch with the kernels."""
     from robust_speech_analysis_framework_tpu_torch.models import wav2vec2 as w2v_model
     from robust_speech_analysis_framework_tpu_torch.models.init import init_weights_
     from robust_speech_analysis_framework_tpu_torch.models.wavlm import WavLMConfig, WavLMModel
@@ -1775,24 +1806,150 @@ def posconv_encoder_batches(dev: torch.device) -> dict:
         with count_launches() as launches:
             encode()
         torch.cuda.synchronize()
-        check_launches(f"posconv {label}", launches, {unit: 1}, model.config)
+        check_launches(f"{tag} {label}", launches, {unit: 1}, model.config)
         times = {"kernel": [], "plain": []}
+        kernels = [(module, name, getattr(module, name)) for module, name, _ in swaps]
         for turn in ("plain", "kernel", "kernel", "plain"):
             if turn == "plain":
-                w2v_model.pos_conv_gelu = w2v_ops.pos_conv_gelu_reference
+                for module, name, plain in swaps:
+                    setattr(module, name, plain)
             try:
                 times[turn].append(cuda_ms(encode, 3))
             finally:
-                w2v_model.pos_conv_gelu = w2v_ops.pos_conv_gelu
+                for module, name, kernel in kernels:
+                    setattr(module, name, kernel)
         kernel_ms, plain_ms = statistics.mean(times["kernel"]), statistics.mean(times["plain"])
-        log(f"[posconv] {label} encoder batch {len(samples)} x {n}: {kernel_ms:.3f} ms with the "
-            f"kernel ({times['kernel']}), {plain_ms:.3f} ms with its plain version "
-            f"({times['plain']})")
+        log(f"[{tag}] {label} encoder batch {len(samples)} x {n}: {kernel_ms:.3f} ms with the "
+            f"kernels ({times['kernel']}), {plain_ms:.3f} ms with {[n for _, n, _ in swaps]}'s "
+            f"plain versions ({times['plain']})")
         profile_device(f"one {label} encoder batch", encode, 12)
         out[label] = {"kernel_ms": kernel_ms, "plain_ms": plain_ms}
         del model, wav
         torch.cuda.empty_cache()
     return out
+
+
+def featconv_bound_ms(b: int, t: int, c_in: int, c_out: int, k: int, stride: int) -> tuple:
+    """Least time for a strided conv: 2 K C_in operations an output at the
+    fp32 FMA rate; x read, the output written and the weights read once."""
+    t_out = (t - k) // stride + 1
+    return bound_ms(4.0 * (b * t * c_in + b * t_out * c_out + c_out * c_in * k),
+                    2.0 * b * t_out * c_out * c_in * k)
+
+
+def _featconv_plans(x, weight, stride: int, gelu: bool, ref, n_sms: int, timer) -> dict:
+    """The kernel's ms (by ``timer``) at every plan the wrapper weighs
+    (``feature_conv_plans``), each output within KERNEL_TOL of the plain
+    version's."""
+    b, t, c_in = x.shape
+    c_out, _, k = weight.shape
+    wt = w2v_ops._feature_conv_weights(weight)
+    scale = float(ref.abs().max())
+    times = {}
+    for plan in w2v_ops.feature_conv_plans(ref.shape[0] * ref.shape[1], c_out, k * c_in, n_sms):
+        out = torch.empty_like(ref, memory_format=torch.contiguous_format)
+        launch = lambda: w2v_ops._launch_feature_conv(x, wt, None, out, stride,  # noqa: E731
+                                                      plan, gelu)
+        times["{}x{}/{}".format(*plan)] = round(timer(launch, 3), 4)
+        err = float((out - ref).abs().max()) / scale
+        if err > KERNEL_TOL:
+            raise AssertionError(f"the feature conv's kernel at plan {plan} is {err:.3e} of "
+                                 f"max |ref| from its plain version")
+    return times
+
+
+def featconv_kernel_phase(dev: torch.device) -> dict:
+    """The strided convs conv_1 ... conv_6 (``feature_conv``) of each encoder's
+    extraction batch and of one serving chunk against their plain version on
+    the card (KERNEL_TOL of max |ref|), one count a call, two calls
+    bit-equal; each conv's time, its plan, the plain version's (cuDNN on the
+    (B, C, T) view, GELU), cuDNN's on a contiguous (B, C, T) as the encoders
+    ran it before the kernel (+ GELU: ``library_ms``), an unfold +
+    ``torch.matmul`` (+ GELU) that the port never calls (``matmul_ms``), its
+    bound, and every plan's time; the six's sums; a profile of conv_1. At
+    one chunk a call's device time is under its host time, so there the
+    times are device times (``graph_ms``), and the kernel's and cuDNN's
+    calls are also timed back to back with their host cost (``calls_ms``,
+    ``library_calls_ms``)."""
+    from robust_speech_analysis_framework_tpu_torch.device import conv1d
+
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    gen = torch.Generator(device=dev).manual_seed(26)
+    records = {}
+    for label, (b, t, c, gelu) in FEATCONV_CASES.items():
+        reps, timer = (50, graph_ms) if b == 1 else (5, cuda_ms)
+        convs = []
+        for i, (k, s) in enumerate(FEATCONV_TAPS, start=1):
+            x = torch.randn((b, t, c), device=dev, generator=gen)
+            weight = torch.randn((c, c, k), device=dev, generator=gen) / float(np.sqrt(c * k))
+            t_out = (t - k) // s + 1
+            act = F.gelu if gelu else (lambda h: h)
+            with torch.inference_mode():
+                ref = w2v_ops.feature_conv_reference(x, weight, None, s, gelu)
+                with count_launches() as launched:
+                    got = w2v_ops.feature_conv(x, weight, None, s, gelu)
+                torch.cuda.synchronize()
+                counted = launched["feature_conv"]
+                abs_err = float((got - ref).abs().max())
+                err = abs_err / float(ref.abs().max())
+                same = torch.equal(w2v_ops.feature_conv(x, weight, None, s, gelu), got)
+                plan = w2v_ops.feature_conv_plan(b * t_out, c, k * c, n_sms)
+                log(f"[featconv] {label} conv_{i} B={b} T={t}->{t_out} C={c} K={k} (plan "
+                    f"{plan}): kernel vs plain version max|d| / max|ref| = {err:.3e} (tol "
+                    f"{KERNEL_TOL}); {counted} count a call; two calls bit-equal: {same}")
+                if not (err <= KERNEL_TOL and counted == 1 and same):
+                    raise AssertionError("feature_conv disagrees with its plain version")
+                del got
+                kernel = lambda: w2v_ops.feature_conv(x, weight, None, s, gelu)  # noqa: E731
+                ms = timer(kernel, reps)
+                plain_ms = timer(lambda: w2v_ops.feature_conv_reference(x, weight, None, s,
+                                                                        gelu), reps)
+                xc = x.transpose(1, 2).contiguous()
+                library = lambda: act(conv1d(xc, weight, None, torch.float32,  # noqa: E731
+                                             stride=s))
+                library_ms = timer(library, reps)
+                calls = {"calls_ms": cuda_ms(kernel, reps),
+                         "library_calls_ms": cuda_ms(library, reps)} if b == 1 else {}
+                del xc
+                wmat = weight.reshape(c, c * k).t()
+                matmul_ms = timer(lambda: act(torch.matmul(
+                    x.unfold(1, k, s).reshape(b * t_out, c * k), wmat)), reps)
+                plans = _featconv_plans(x, weight, s, gelu, ref, n_sms, timer)
+                if label != "serving" and i == 1:
+                    profile_device(f"one feature_conv call ({label} conv_1)",
+                                   lambda: w2v_ops.feature_conv(x, weight, None, s, gelu), 4)
+            bound, by = featconv_bound_ms(b, t, c, c, k, s)
+            tflops = 2.0 * b * t_out * c * c * k / (ms * 1e-3) / 1e12
+            fastest = min(plans, key=plans.get)
+            log(f"[featconv] {label} conv_{i}: kernel {ms:.4f} ms, {tflops:.2f} TFLOP/s "
+                f"({bound / ms:.1%} of its bound {bound:.4f} ms by {by}); plain version "
+                f"{plain_ms:.4f} ms; cuDNN (B, C, T) {library_ms:.4f} ms; unfold + matmul "
+                f"{matmul_ms:.4f} ms; {calls or ''} fastest plan {fastest} {plans[fastest]} ms; "
+                f"plans {plans}")
+            convs.append({"conv": i, "t_in": t, "t_out": t_out, "k": k, "plan": list(plan),
+                          "max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
+                          "library_ms": library_ms, "matmul_ms": matmul_ms, "bound_ms": bound,
+                          "tflops": tflops, "plans": plans, **calls})
+            del x, weight, ref
+            torch.cuda.empty_cache()
+            t = t_out
+        total = {key: sum(r[key] for r in convs)
+                 for key in ("ms", "plain_ms", "library_ms", "matmul_ms", "bound_ms")}
+        share = total["bound_ms"] / total["ms"]
+        log(f"[featconv] {label} conv_1-6: kernel {total['ms']:.3f} ms ({share:.1%} of the "
+            f"bound {total['bound_ms']:.3f} ms); plain version "
+            f"{total['plain_ms']:.3f}; cuDNN (B, C, T) {total['library_ms']:.3f}; unfold + "
+            f"matmul {total['matmul_ms']:.3f}; each conv no slower than cuDNN's: "
+            f"{all(r['ms'] <= r['library_ms'] for r in convs)}")
+        records[label] = dict(total, max_abs_err=max(r["max_abs_err"] for r in convs),
+                              bound_by="operations", convs=convs,
+                              shape=f"B={b} T={convs[0]['t_in']}->{t} C={c} K=3,3,3,3,2,2 s=2",
+                              tflops=sum(2.0 * b * r["t_out"] * c * c * r["k"] for r in convs)
+                              / (total["ms"] * 1e-3) / 1e12)
+    rec = dict(records["wav2vec2-base"])
+    rec["max_abs_err"] = max(r["max_abs_err"] for r in records.values())
+    rec["wavlm"], rec["serving"] = records["wavlm-large"], records["serving"]
+    return {"feature_conv": rec}
 
 
 WAVLM_SHAPE = (16, 16, 799)  # B, heads, T: an extraction batch of 16 s chunks
@@ -3516,6 +3673,7 @@ def run(dev: torch.device, smi: str) -> None:
     records.update(march_kernel_phase(dev))
     records.update(conv0_kernel_phase(dev))
     records.update(posconv_kernel_phase(dev))
+    records.update(featconv_kernel_phase(dev))
     records.update(wavlm_kernel_phase(dev))
     flagship_phase(dev)
     with tempfile.TemporaryDirectory() as tmp:
@@ -3545,6 +3703,7 @@ def run(dev: torch.device, smi: str) -> None:
         ("viterbi_path", VITERBI_SOURCE, f"{PALLAS_VITERBI}:135"),
         ("march_periods", MARCH_SOURCE, JAX_MARCH),
         ("conv0_norm_gelu", CONV0_SOURCE, JAX_CONV0),
+        ("feature_conv", FEATCONV_SOURCE, JAX_FEATCONV),
         ("pos_conv_gelu", POSCONV_SOURCE, JAX_POSCONV),
         ("relpos_softmax", WAVLM_SOURCE, JAX_WAVLM),
     ):
@@ -3565,7 +3724,7 @@ def run(dev: torch.device, smi: str) -> None:
                                    "boundaries_equal", "periods_longest_lane", "us_a_period",
                                    "phases", "conv_ms", "chain_ms", "bound_every_pair_ms",
                                    "encoder_batch_ms", "encoder_peak_bytes", "tflops", "tile",
-                                   "tiles", "wavlm")
+                                   "tiles", "wavlm", "convs", "matmul_ms")
                if k in rec},
         })
     log(f"[card] {smi}")
@@ -3628,6 +3787,8 @@ def conv0_only() -> None:
 def posconv_only() -> None:
     """``--posconv``: the positional conv's kernel phase and one encoder
     batch of each model with and without it; prints the kernel's record."""
+    from robust_speech_analysis_framework_tpu_torch.models import wav2vec2 as w2v_model
+
     t0 = time.perf_counter()
     _build.build_all()
     log(f"[build] nvcc for {_build.sources()}: {time.perf_counter() - t0:.2f} s")
@@ -3637,7 +3798,29 @@ def posconv_only() -> None:
     torch.backends.cudnn.conv.fp32_precision = "ieee"
     dev = torch.device("cuda", 0)
     record = posconv_kernel_phase(dev)
-    record["pos_conv_gelu"]["encoder_batches"] = posconv_encoder_batches(dev)
+    record["pos_conv_gelu"]["encoder_batches"] = encoder_batches(
+        dev, "posconv", ((w2v_model, "pos_conv_gelu", w2v_ops.pos_conv_gelu_reference),))
+    print(json.dumps(record))
+
+
+def featconv_only() -> None:
+    """``--featconv``: the strided convs' kernel phase and one encoder batch
+    of each model with and without it; prints the kernel's record."""
+    from robust_speech_analysis_framework_tpu_torch.models import wav2vec2 as w2v_model
+    from robust_speech_analysis_framework_tpu_torch.models import wavlm as wavlm_model
+
+    t0 = time.perf_counter()
+    _build.build_all()
+    log(f"[build] nvcc for {_build.sources()}: {time.perf_counter() - t0:.2f} s")
+    for line in ptxas_report(_build.build_logs.get("feature_conv", "")):
+        log(f"[build] feature_conv: {line}")
+    torch.backends.cuda.matmul.fp32_precision = "ieee"
+    torch.backends.cudnn.conv.fp32_precision = "ieee"
+    dev = torch.device("cuda", 0)
+    record = featconv_kernel_phase(dev)
+    plain = w2v_ops.feature_conv_reference
+    record["feature_conv"]["encoder_batches"] = encoder_batches(
+        dev, "featconv", ((w2v_model, "feature_conv", plain), (wavlm_model, "feature_conv", plain)))
     print(json.dumps(record))
 
 
@@ -3674,6 +3857,11 @@ def main() -> int:
     if len(sys.argv) > 1 and sys.argv[1] == "--conv0":
         log(f"[card] {smi}")
         conv0_only()
+        log(f"[card] {smi}")
+        return 0
+    if len(sys.argv) > 1 and sys.argv[1] == "--featconv":
+        log(f"[card] {smi}")
+        featconv_only()
         log(f"[card] {smi}")
         return 0
     if len(sys.argv) > 1 and sys.argv[1] == "--posconv":

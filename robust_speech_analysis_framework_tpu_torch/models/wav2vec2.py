@@ -35,7 +35,7 @@ from torch import nn
 
 from ..device import conv1d
 from ..ops.cuda import wav2vec2 as w2v_ops
-from ..ops.cuda.wav2vec2 import channel_norm_gelu, conv0_norm_gelu, pos_conv_gelu
+from ..ops.cuda.wav2vec2 import channel_norm_gelu, conv0_norm_gelu, feature_conv, pos_conv_gelu
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,15 +89,19 @@ class FeatureEncoder(nn.Module):
         cfg = self.config
         cdt = cfg.cdtype
         cur_lengths = lengths
+        # the wrappers pick their kernel or plain version by device and cdt;
+        # conv_1 ... take and give (B, T, C)
         for i, (k, s) in enumerate(zip(cfg.conv_kernel, cfg.conv_stride)):
             if cur_lengths is not None:
                 cur_lengths = torch.div(cur_lengths - k, s, rounding_mode="floor") + 1
             if i > 0:
-                h = F.gelu(conv1d(h, getattr(self, f"conv_{i}").weight, None, cdt, stride=s))
-            else:  # the wrapper picks the kernel or its plain version by device and cdt
+                conv = getattr(self, f"conv_{i}")
+                h = feature_conv(h, conv.weight, conv.bias, s, True, cdt=cdt)
+            else:
                 h = conv0_norm_gelu(waveform, self.conv_0.weight, self.gn_scale, self.gn_bias,
-                                    cur_lengths, cfg.layer_norm_eps, stride=s, cdt=cdt)
-        return h.float().transpose(1, 2), cur_lengths
+                                    cur_lengths, cfg.layer_norm_eps, stride=s,
+                                    cdt=cdt).transpose(1, 2)
+        return h.float(), cur_lengths
 
 
 def _dense(layer: nn.Linear, x: torch.Tensor, cdt: torch.dtype) -> torch.Tensor:

@@ -8,7 +8,9 @@ has no WavLM.
 
 * Feature encoder in layer mode: each of the 7 convs (a bias only with
   ``conv_bias``), then a LayerNorm over the channels of each frame (affine,
-  eps 1e-5 as ``transformers`` builds it whatever the config's), then GELU.
+  eps 1e-5 as ``transformers`` builds it whatever the config's), then GELU,
+  on (B, T, C); conv_1 … are Wav2Vec2's :func:`..ops.cuda.wav2vec2.feature_conv`
+  with no GELU (a hand-written kernel on the card).
 * The feature projection and the positional conv are Wav2Vec2's modules;
   ``h + GELU(posconv(h))`` goes into the layers with no LayerNorm.
 * Pre-norm layers: ``x + Attn(LN₁(x))``, then ``x + FFN(LN₂(x))``; one
@@ -47,6 +49,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..device import conv1d
+from ..ops.cuda.wav2vec2 import feature_conv
 from ..ops.cuda.wavlm import relpos_softmax
 from ..utils.profiling import span
 from .wav2vec2 import (FeatureProjection, PositionalConvEmbedding, Wav2Vec2Config, _attention,
@@ -107,15 +110,17 @@ class LayerNormFeatureEncoder(nn.Module):
     def forward(self, waveform: torch.Tensor, lengths: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         cfg = self.config
-        h = waveform[:, None, :]
         for i, (k, s) in enumerate(zip(cfg.conv_kernel, cfg.conv_stride)):
             if lengths is not None:
                 lengths = torch.div(lengths - k, s, rounding_mode="floor") + 1
             conv, norm = getattr(self, f"conv_{i}"), getattr(self, f"norm_{i}")
-            h = conv1d(h, conv.weight, conv.bias, torch.float32, stride=s)
-            h = F.gelu(F.layer_norm(h.transpose(1, 2), (h.shape[1],), norm.weight, norm.bias,
-                                    norm.eps)).transpose(1, 2)
-        return h.transpose(1, 2), lengths
+            if i > 0:  # (B, T, C) in and out: the kernel on the card, its plain version on the CPU
+                h = feature_conv(h, conv.weight, conv.bias, s, False)
+            else:  # one input channel: cuDNN's conv, then a (B, T, C) view
+                h = conv1d(waveform[:, None, :], conv.weight, conv.bias, torch.float32,
+                           stride=s).transpose(1, 2)
+            h = F.gelu(F.layer_norm(h, (h.shape[2],), norm.weight, norm.bias, norm.eps))
+        return h, lengths
 
 
 class WavLMLayer(nn.Module):

@@ -13,7 +13,7 @@ from robust_speech_analysis_framework_tpu_torch.ops.cuda import wav2vec2 as w2v_
 KERNELS = {
     "lstm_scan_grouped", "lstm_scan", "lstm_scan_fwd_res_grouped", "lstm_scan_bwd_grouped",
     "lstm_gate_acts_grouped", "lstm_dwh_grouped", "viterbi_forward_costs", "viterbi_path",
-    "march_periods", "conv0_norm_gelu", "pos_conv_gelu", "relpos_softmax",
+    "march_periods", "conv0_norm_gelu", "feature_conv", "pos_conv_gelu", "relpos_softmax",
 }
 
 
@@ -63,7 +63,7 @@ def test_the_table_sums_a_phases_units():
     assert want == {
         "lstm_scan_fwd_res_grouped": 8, "lstm_scan_bwd_grouped": 8, "lstm_gate_acts_grouped": 8,
         "lstm_dwh_grouped": 8, "lstm_scan_grouped": 6, "conv0_norm_gelu": 1,
-        "pos_conv_gelu": 3, "relpos_softmax": 48, "viterbi_forward_costs": 10,
+        "feature_conv": 18, "pos_conv_gelu": 3, "relpos_softmax": 48, "viterbi_forward_costs": 10,
         "viterbi_path": 10, "march_periods": 2}
 
 

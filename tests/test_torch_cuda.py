@@ -1074,3 +1074,150 @@ def test_encoder_on_card_matches_cpu_and_runs_the_pos_conv_kernel(cuda_device, e
     for i, n in enumerate(ref_lens.tolist()):
         np.testing.assert_allclose(got[i, :n].cpu().numpy(), ref[i, :n].numpy(), rtol=0,
                                    atol=1e-4)
+
+
+FEAT_CONV_TOL = 1e-5  # of max |ref|: 1,024 / 1,536 products an output in another order
+FEAT_CONV_CASES = {  # B, T_in, C_in, C_out, K, stride, GELU, bias
+    "w2v2-conv1": (16, 15_999, 512, 512, 3, 2, True, False),
+    "wavlm-conv5": (16, 3_199, 512, 512, 2, 2, False, False),
+    "wavlm-conv2-bias": (16, 25_599, 512, 512, 3, 2, False, True),
+    "b1-conv1": (1, 15_999, 512, 512, 3, 2, True, False),
+    "b1-conv6-bias": (1, 499, 512, 512, 2, 2, True, True),
+    "odd-t-out": (3, 2_000, 512, 512, 3, 2, True, True),  # 999 frames: no tile's multiple
+    "one-frame": (2, 3, 512, 512, 3, 2, False, True),
+    "narrow": (3, 301, 16, 64, 3, 2, True, True),  # C_in 16: one stage a tap
+    "odd-widths": (2, 401, 20, 72, 3, 2, True, True),  # K C_in 60, C_out 72: masked tails
+}
+
+
+def _feat_conv_case(name, device):
+    """(x (B, T, C_in), weight (C_out, C_in, K), bias or None, stride, gelu) on ``device``."""
+    b, t, c_in, c_out, k, stride, gelu, with_bias = FEAT_CONV_CASES[name]
+    gen = torch.Generator(device=device).manual_seed(zlib.crc32(name.encode()))
+    x = torch.randn((b, t, c_in), device=device, generator=gen)
+    weight = torch.randn((c_out, c_in, k), device=device, generator=gen) / float(np.sqrt(c_in * k))
+    bias = 0.1 * torch.randn(c_out, device=device, generator=gen) if with_bias else None
+    return x, weight, bias, stride, gelu
+
+
+@pytest.mark.parametrize("case", sorted(FEAT_CONV_CASES))
+def test_feature_conv_kernel_matches_plain_version(cuda_device, case):
+    """The strided convs' kernel against its plain version (cuDNN's conv on
+    the (B, C, T) view, GELU) over the whole output, one launch a call, two
+    calls bit-equal; at the plan the wrapper picks and at every other tile
+    and a split of the reduction."""
+    from robust_speech_analysis_framework_tpu_torch.ops.cuda import wav2vec2 as w2v_ops
+
+    x, weight, bias, stride, gelu = _feat_conv_case(case, cuda_device)
+    with torch.no_grad():
+        ref = w2v_ops.feature_conv_reference(x, weight, bias, stride, gelu)
+        before = w2v_ops.feature_conv.launches
+        got = w2v_ops.feature_conv(x, weight, bias, stride, gelu)
+        torch.cuda.synchronize()
+        assert w2v_ops.feature_conv.launches == before + 1
+        assert got.shape == ref.shape and got.dtype == torch.float32 and got.is_contiguous()
+        scale = float(ref.abs().max())
+        assert float((got - ref).abs().max()) <= FEAT_CONV_TOL * scale, case
+        assert torch.equal(w2v_ops.feature_conv(x, weight, bias, stride, gelu), got)
+        wt = w2v_ops._feature_conv_weights(weight)
+        for tile in w2v_ops.FEAT_TILES:
+            for splits in (1, 2):
+                out = torch.empty_like(got)
+                w2v_ops._launch_feature_conv(x, wt, bias, out, stride, (*tile, splits), gelu)
+                err = float((out - ref).abs().max())
+                assert err <= FEAT_CONV_TOL * scale, (case, tile, splits, err)
+
+
+def test_feature_conv_kernel_counts_one_launch_a_call_and_rejects_what_it_does_not_take(
+        cuda_device):
+    from robust_speech_analysis_framework_tpu_torch.ops.cuda import wav2vec2 as w2v_ops
+
+    x, weight, bias, stride, gelu = _feat_conv_case("narrow", cuda_device)
+    w2v_ops.feature_conv.launches = 0
+    with torch.no_grad():
+        for _ in range(3):
+            w2v_ops.feature_conv(x, weight, bias, stride, gelu)
+        assert w2v_ops.feature_conv(x[:0], weight, bias, stride, gelu).shape == (0, 150, 64)
+        assert w2v_ops.feature_conv.launches == 3
+        # a transposed view is read once made contiguous
+        xt = x.transpose(1, 2).contiguous().transpose(1, 2)
+        assert torch.equal(w2v_ops.feature_conv(xt, weight, bias, stride, gelu),
+                           w2v_ops.feature_conv(x, weight, bias, stride, gelu))
+        with pytest.raises(TypeError, match="float32"):
+            w2v_ops.feature_conv(x.double(), weight, bias, stride, gelu)
+        with pytest.raises(ValueError, match="multiples of 4"):  # 6 input channels
+            w2v_ops.feature_conv(x[:, :, :6], weight[:, :6], bias, stride, gelu)
+        with pytest.raises(ValueError, match="multiples of 4"):  # 90 output channels
+            w2v_ops.feature_conv(x, torch.zeros(90, 16, 3, device=cuda_device), None, 2, gelu)
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            _misaligned(w2v_ops, x, weight)
+    with pytest.raises(RuntimeError, match="no backward"):
+        w2v_ops.feature_conv(x, weight.requires_grad_(), bias, stride, gelu)
+    assert float(torch.ones(8, device=cuda_device).sum()) == 8.0
+    torch.cuda.synchronize()
+    assert w2v_ops.feature_conv.launches == 5
+
+
+def _misaligned(w2v_ops, x, weight):
+    """x one float past a 16-byte boundary: the kernel's 16-byte copies refuse it."""
+    flat = torch.empty(x.numel() + 1, device=x.device)
+    shifted = flat[1:].view(x.shape)
+    shifted.copy_(x)
+    return w2v_ops.feature_conv(shifted, weight, None, 2, True)
+
+
+def test_feature_conv_smem_plan_matches_the_kernel(cuda_device):
+    """The wrapper's shared-memory sizes, which its plan reads, are the .cu
+    file's own, and the file builds no tile the plan does not know."""
+    import ctypes
+
+    from robust_speech_analysis_framework_tpu_torch.ops.cuda import _build
+    from robust_speech_analysis_framework_tpu_torch.ops.cuda import wav2vec2 as w2v_ops
+
+    fn = _build.load("feature_conv").feature_conv_smem_bytes
+    fn.argtypes, fn.restype = [ctypes.c_int] * 2, ctypes.c_longlong
+    for bm, bn in w2v_ops.FEAT_TILES:
+        assert fn(bm, bn) == w2v_ops.feature_conv_smem_bytes(bm, bn)
+    assert fn(32, 64) == 0 and fn(128, 64) == 0
+
+
+@pytest.mark.parametrize("encoder", ["wav2vec2", "wavlm"])
+def test_encoder_on_card_matches_cpu_and_runs_the_feature_conv_kernel_six_times(cuda_device,
+                                                                                encoder):
+    """Each encoder's conv stack at its published widths (512 channels, K =
+    3, 3, 3, 3, 2, 2 at stride 2): hidden states on the card against the CPU
+    on valid frames, six strided-conv launches a forward, and the feature
+    encoder's output contiguous (B, T, C)."""
+    from robust_speech_analysis_framework_tpu_torch.models.init import init_weights_
+    from robust_speech_analysis_framework_tpu_torch.models.wav2vec2 import (
+        Wav2Vec2Config,
+        Wav2Vec2Model,
+    )
+    from robust_speech_analysis_framework_tpu_torch.models.wavlm import WavLMConfig, WavLMModel
+    from robust_speech_analysis_framework_tpu_torch.ops.cuda import wav2vec2 as w2v_ops
+
+    if encoder == "wav2vec2":
+        cpu = Wav2Vec2Model(Wav2Vec2Config(num_layers=1))
+    else:
+        cpu = WavLMModel(WavLMConfig(num_layers=1))
+    init_weights_(cpu, torch.Generator().manual_seed(3))
+    cpu = cpu.eval()
+    card = copy.deepcopy(cpu).to(cuda_device)
+    rng = np.random.default_rng(9)
+    lengths = np.array([32_000, 9_000, 20_003], np.int32)
+    wav = (0.1 * rng.normal(size=(3, 32_000))).astype(np.float32)
+    for i, n in enumerate(lengths):
+        wav[i, n:] = 0.0
+    before = w2v_ops.feature_conv.launches
+    with torch.no_grad():
+        feats, _ = card.feature_encoder(torch.from_numpy(wav).to(cuda_device),
+                                        torch.from_numpy(lengths).to(cuda_device))
+        assert feats.is_contiguous() and feats.shape[2] == 512
+        ref, ref_lens = cpu(torch.from_numpy(wav), torch.from_numpy(lengths))
+        got, got_lens = card(torch.from_numpy(wav).to(cuda_device),
+                             torch.from_numpy(lengths).to(cuda_device))
+    assert w2v_ops.feature_conv.launches == before + 12
+    np.testing.assert_array_equal(got_lens.cpu().numpy(), ref_lens.numpy())
+    for i, n in enumerate(ref_lens.tolist()):
+        np.testing.assert_allclose(got[i, :n].cpu().numpy(), ref[i, :n].numpy(), rtol=0,
+                                   atol=1e-4)

@@ -337,18 +337,19 @@ def test_feature_encoder_routes_its_first_block_by_compute_dtype(monkeypatch, co
     """The encoder hands its compute dtype to ``conv0_norm_gelu``, which
     decides: float32 takes the kernel on a CUDA tensor (the plain version on
     the CPU), the bfloat16 preset its first block's plain version with its
-    conv in bfloat16; the other convs go through ``conv1d``."""
+    conv in bfloat16; the other six convs go through ``feature_conv``, which
+    decides by the same rule."""
     from robust_speech_analysis_framework_tpu_torch.models import wav2vec2 as w2v_model
 
     calls = _spy_routes(monkeypatch, "conv0_norm_gelu_reference")
     calls["conv"] = 0
-    conv = w2v_model.conv1d
+    conv = w2v_model.feature_conv
 
     def spy_conv(*args, **kwargs):
         calls["conv"] += 1
         return conv(*args, **kwargs)
 
-    monkeypatch.setattr(w2v_model, "conv1d", spy_conv)
+    monkeypatch.setattr(w2v_model, "feature_conv", spy_conv)
     torch.manual_seed(0)
     encoder = w2v_model.FeatureEncoder(Wav2Vec2Config(**SMALL, compute_dtype=compute_dtype))
     wav = torch.from_numpy((0.1 * np.random.default_rng(12).normal(size=(2, 6000)))
@@ -357,7 +358,7 @@ def test_feature_encoder_routes_its_first_block_by_compute_dtype(monkeypatch, co
         feats, lens = encoder(wav, torch.tensor([6000, 4100], dtype=torch.int32))
     assert feats.shape == (2, Wav2Vec2Config(**SMALL).output_length(6000), 16)
     cdt = torch.float32 if compute_dtype == "float32" else torch.bfloat16
-    assert calls == {"conv": 6, "route": [("cpu", cdt, compute_dtype == "float32")],
+    assert calls == {"conv": 6, "route": [("cpu", cdt, compute_dtype == "float32")] * 7,
                      "plain": [cdt]}
 
 
@@ -381,6 +382,208 @@ def test_conv0_plain_version_in_bfloat16_equals_the_former_inline_block(masked):
     got = conv0_norm_gelu_reference(wav, weight, scale, bias, lengths, 1e-5, cdt=torch.bfloat16)
     assert got.dtype == torch.float32
     assert torch.equal(got, former)
+
+
+# --- conv_1 ... conv_6: plain version, the kernel's arithmetic, plan, dispatch ------------
+
+FEAT_CASES = {  # (B, T_in, C_in, C_out, K, stride)
+    "k3": (3, 41, 16, 64, 3, 2),
+    "k2": (2, 30, 32, 64, 2, 2),
+    "k3-odd-t": (2, 24, 16, 128, 3, 2),
+    "one-frame": (1, 3, 16, 64, 3, 2),
+    "narrow": (2, 33, 20, 12, 3, 2),  # K C_in = 60: a last stage of 12 floats
+}
+
+
+def _feat_inputs(seed, b, t, c_in, c_out, k, stride):
+    """x as the encoder hands it over: a (B, T, C_in) view of a (B, C_in, T)
+    tensor; weight (C_out, C_in, K); bias (C_out,)."""
+    rng = np.random.default_rng(seed)
+    f32 = lambda a: torch.from_numpy(np.asarray(a, np.float32))  # noqa: E731
+    x = f32(rng.normal(size=(b, c_in, t))).transpose(1, 2)
+    return (x, f32(rng.normal(size=(c_out, c_in, k)) / np.sqrt(c_in * k)),
+            f32(0.1 * rng.normal(size=c_out)))
+
+
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("with_bias", [False, True], ids=["no-bias", "bias"])
+@pytest.mark.parametrize("gelu", [True, False], ids=["group-mode", "layer-mode"])
+def test_feature_conv_plain_version_equals_the_former_inline_code(gelu, with_bias, cdt):
+    """The plain version gives the encoders' former inline conv bit for bit:
+    group mode ``F.gelu(conv1d(h, ...))`` and layer mode ``conv1d(h, ...)``
+    on the (B, C, T) tensor, in the compute dtype; it returns the (B, T, C)
+    view of that result. On CPU tensors the wrapper is the plain version."""
+    from robust_speech_analysis_framework_tpu_torch.device import conv1d
+    from robust_speech_analysis_framework_tpu_torch.ops.cuda.wav2vec2 import (
+        feature_conv,
+        feature_conv_reference,
+    )
+
+    x, weight, bias = _feat_inputs(40, *FEAT_CASES["k3"])
+    bias = bias if with_bias else None
+    h = conv1d(x.transpose(1, 2), weight, bias, cdt, stride=2)
+    former = torch.nn.functional.gelu(h) if gelu else h
+    got = feature_conv_reference(x, weight, bias, 2, gelu, cdt)
+    assert got.dtype == cdt and got.shape == (3, 20, 64)
+    assert torch.equal(got.transpose(1, 2), former) and got.transpose(1, 2).is_contiguous()
+    assert torch.equal(feature_conv(x, weight, bias, 2, gelu, cdt=cdt), got)
+
+
+@pytest.mark.parametrize("splits", [1, 3])
+@pytest.mark.parametrize("case", sorted(FEAT_CASES))
+def test_feature_conv_kernel_rows_and_weights_emulated(case, splits):
+    """The kernel's arithmetic in float64: each row b's overlapping A rows
+    (``as_strided`` of the (T_in, C_in) row with row stride s C_in, K C_in
+    wide) times the weights as the wrapper lays them out ((K C_in, C_out)),
+    the reduction cut into the plan's splits of whole 16-float stages and
+    added in split order, with the bias and GELU, give the plain version's
+    output (K = 2 and 3 at stride 2, a T_in whose last frame no output reads,
+    one output frame). The rows past B T_out of the last tile read the last
+    row (the kernel's clamp) and stay inside x."""
+    from robust_speech_analysis_framework_tpu_torch.ops.cuda.wav2vec2 import (
+        FEAT_BK,
+        _feature_conv_weights,
+        feature_conv_reference,
+    )
+
+    b, t, c_in, c_out, k, s = FEAT_CASES[case]
+    x, weight, bias = _feat_inputs(41, b, t, c_in, c_out, k, s)
+    x = x.contiguous()  # the kernel reads (B, T, C) contiguous
+    wt = _feature_conv_weights(weight)
+    assert wt.shape == (k * c_in, c_out) and wt.is_contiguous()
+    assert torch.equal(wt[2 * c_in + 5], weight[:, 5, 2]) if k == 3 else True
+    t_out = (t - k) // s + 1
+    kc, m, bm = k * c_in, b * t_out, 64
+    rows = torch.cat([x[i].reshape(-1).as_strided((t_out, kc), (s * c_in, 1)) for i in range(b)])
+    # the kernel's per-thread pointers: row m of a tile -> (b, t), clamped to the last row
+    mm = torch.clamp(torch.arange(-(-m // bm) * bm), max=m - 1)
+    offsets = ((mm // t_out) * t + s * (mm % t_out)) * c_in
+    assert int(offsets.max()) + kc <= x.numel()
+    gathered = x.reshape(-1)[offsets[:, None] + torch.arange(kc)]
+    assert torch.equal(gathered[:m], rows)
+    n_stages = -(-kc // FEAT_BK)  # a last stage past K C_in reads zeros
+    while (splits - 1) * -(-n_stages // splits) >= n_stages:
+        splits -= 1  # the plans leave no split empty
+    per = -(-n_stages // splits)
+    edges = [min(kc, i * per * FEAT_BK) for i in range(splits + 1)]
+    assert edges[-1] == kc and all(lo < hi for lo, hi in zip(edges, edges[1:]))
+    a, w64 = rows.double(), wt.double()
+    y = sum(a[:, lo:hi] @ w64[lo:hi] for lo, hi in zip(edges, edges[1:])) + bias.double()
+    emulated = torch.nn.functional.gelu(y).reshape(b, t_out, c_out)
+    ref = feature_conv_reference(x, weight, bias, s, True).double()
+    assert float((emulated - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+FEAT_BATCHES = {  # each conv's (B, T_in): both encoders' extraction batches, one chunk
+    "wav2vec2-base": [(16, t) for t in (15_999, 7_999, 3_999, 1_999, 999, 499)],
+    "wavlm-large": [(16, t) for t in (51_199, 25_599, 12_799, 6_399, 3_199, 1_599)],
+    "serving": [(1, t) for t in (15_999, 7_999, 3_999, 1_999, 999, 499)],
+    "wavlm-serving": [(1, t) for t in (51_199, 25_599, 12_799, 6_399, 3_199, 1_599)],
+}
+
+
+@pytest.mark.parametrize("batch", sorted(FEAT_BATCHES))
+def test_feature_conv_plan_fills_the_sms(batch):
+    """At both encoders' batches and at one chunk, every conv's plan is a
+    tile the kernel builds, fits a block's shared memory, leaves no split
+    empty, splits only tiles that do not fill a round, and gives at least 95 %
+    of the H100's 132 SMs a block (128 blocks of 64 × 128 at one chunk's
+    conv_3 ran within 3 % of every other plan there)."""
+    from robust_speech_analysis_framework_tpu_torch.ops.cuda.wav2vec2 import (
+        FEAT_BK,
+        FEAT_TILES,
+        SMEM_BLOCK,
+        feature_conv_plan,
+        feature_conv_smem_bytes,
+    )
+
+    for (b, t), k in zip(FEAT_BATCHES[batch], (3, 3, 3, 3, 2, 2)):
+        m, kc = b * ((t - k) // 2 + 1), 512 * k
+        bm, bn, splits = feature_conv_plan(m, 512, kc, 132)
+        assert (bm, bn) in FEAT_TILES and feature_conv_smem_bytes(bm, bn) <= SMEM_BLOCK
+        per = -(-(kc // FEAT_BK) // splits)
+        assert (splits - 1) * per < kc // FEAT_BK
+        tiles = -(-m // bm) * (512 // bn)
+        assert splits == 1 or tiles < 132 * FEAT_TILES[(bm, bn)]
+        assert tiles * splits >= 0.95 * 132, (batch, t, (bm, bn, splits))
+    assert feature_conv_plan(1000, 12, 60, 132)[:2] in FEAT_TILES  # channels no tile divides
+
+
+def test_feature_conv_wrapper_guards():
+    from robust_speech_analysis_framework_tpu_torch.ops.cuda.wav2vec2 import feature_conv
+
+    x, weight, bias = _feat_inputs(42, *FEAT_CASES["k3"])
+    with pytest.raises(ValueError, match=r"\(B, T, C_in\)"):
+        feature_conv(x[0], weight, bias, 2, True)
+    with pytest.raises(ValueError, match=r"\(B, T, C_in\)"):
+        feature_conv(x[:, :, :8], weight, bias, 2, True)
+    with pytest.raises(ValueError, match="bias"):
+        feature_conv(x, weight, bias[:8], 2, True)
+    with pytest.raises(ValueError, match="stride"):
+        feature_conv(x, weight, bias, 0, True)
+    with pytest.raises(ValueError, match="fewer than"):
+        feature_conv(x[:, :2], weight, bias, 2, True)
+    with pytest.raises(ValueError, match="unsupported device"):
+        feature_conv(x.to("meta"), weight.to("meta"), bias.to("meta"), 2, True)
+
+
+def test_feature_conv_dispatch_keeps_cpu_tensors_off_the_build(monkeypatch, port_model):
+    """On CPU tensors the strided convs' wrapper, and the float32 encoder
+    through it, never reach the CUDA build or count a launch."""
+    from robust_speech_analysis_framework_tpu_torch.ops.cuda import _build
+    from robust_speech_analysis_framework_tpu_torch.ops.cuda import wav2vec2 as w2v_ops
+
+    def no_build(*args, **kwargs):
+        raise AssertionError("a CPU tensor reached the CUDA build")
+
+    for name in ("load", "call"):
+        monkeypatch.setattr(_build, name, no_build)
+    for name in ("_call", "_load", "_launch_feature_conv", "feature_conv_plan"):
+        monkeypatch.setattr(w2v_ops, name, no_build)
+    before = w2v_ops.feature_conv.launches
+    x, weight, bias = _feat_inputs(43, *FEAT_CASES["k2"])
+    with torch.no_grad():
+        w2v_ops.feature_conv(x, weight, bias, 2, False)
+        port_model(torch.zeros(2, 8000), torch.tensor([8000, 6000], dtype=torch.int32))
+    assert w2v_ops.feature_conv.launches == before
+
+
+@pytest.mark.parametrize("masked", [True, False], ids=["lengths", "no-lengths"])
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_feature_encoder_output_equals_the_former_inline_stack(compute_dtype, masked):
+    """The encoder's output on the CPU is its former code's bit for bit: the
+    first block, then each conv in the compute dtype on (B, C, T) with GELU,
+    then float32 (B, T, C); and it keeps the former strides."""
+    from robust_speech_analysis_framework_tpu_torch.device import conv1d
+    from robust_speech_analysis_framework_tpu_torch.models import wav2vec2 as w2v_model
+    from robust_speech_analysis_framework_tpu_torch.ops.cuda.wav2vec2 import (
+        conv0_norm_gelu_reference,
+    )
+
+    torch.manual_seed(0)
+    cfg = Wav2Vec2Config(**SMALL, compute_dtype=compute_dtype)
+    encoder = w2v_model.FeatureEncoder(cfg)
+    wav = torch.from_numpy((0.1 * np.random.default_rng(44).normal(size=(2, 7000)))
+                           .astype(np.float32))
+    lengths = torch.tensor([7000, 5100], dtype=torch.int32) if masked else None
+    with torch.no_grad():
+        got, got_lens = encoder(wav, lengths)
+        cur = lengths
+        for i, (k, s) in enumerate(zip(cfg.conv_kernel, cfg.conv_stride)):
+            if cur is not None:
+                cur = torch.div(cur - k, s, rounding_mode="floor") + 1
+            if i > 0:
+                h = torch.nn.functional.gelu(
+                    conv1d(h, getattr(encoder, f"conv_{i}").weight, None, cfg.cdtype, stride=s))
+            else:
+                h = conv0_norm_gelu_reference(wav, encoder.conv_0.weight, encoder.gn_scale,
+                                              encoder.gn_bias, cur, cfg.layer_norm_eps,
+                                              stride=s, cdt=cfg.cdtype)
+        former = h.float().transpose(1, 2)
+    assert torch.equal(got, former) and got.stride() == former.stride()
+    assert (got_lens is None) == (not masked)
+    if masked:
+        assert torch.equal(got_lens, cur)
 
 
 # --- the positional conv: plain version, the kernel's arithmetic, dispatch ---------------

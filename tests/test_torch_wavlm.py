@@ -252,6 +252,51 @@ def test_random_init_covers_the_new_parameters():
     assert m.rel_attn_embed.weight.abs().max() <= 0.5 and m.rel_attn_embed.weight.std() > 0.1
 
 
+@pytest.mark.parametrize("masked", [True, False], ids=["lengths", "no-lengths"])
+@pytest.mark.parametrize("conv_bias", [False, True], ids=["no-bias", "bias"])
+def test_layer_mode_stack_equals_the_former_inline_stack(monkeypatch, conv_bias, masked):
+    """The conv stack's output on the CPU is its former code's bit for bit
+    (each conv on (B, C, T), LayerNorm and GELU on its (B, T, C) view, with
+    or without the convs' bias), with the former strides; conv_1 ... go
+    through ``feature_conv`` (six calls, no GELU, the conv's bias)."""
+    import torch.nn.functional as F
+
+    from robust_speech_analysis_framework_tpu_torch.device import conv1d
+    from robust_speech_analysis_framework_tpu_torch.models import wavlm as wavlm_model
+
+    calls = []
+    feature_conv = wavlm_model.feature_conv
+
+    def spy(x, weight, bias, stride, gelu, *args, **kwargs):
+        calls.append((stride, gelu, bias is None))
+        return feature_conv(x, weight, bias, stride, gelu, *args, **kwargs)
+
+    monkeypatch.setattr(wavlm_model, "feature_conv", spy)
+    torch.manual_seed(0)
+    cfg = WavLMConfig(**dict(SMALL, conv_bias=conv_bias))
+    encoder = wavlm_model.LayerNormFeatureEncoder(cfg)
+    init_weights_(encoder, torch.Generator().manual_seed(2))
+    wav = torch.zeros(2, 7000)
+    for i, w in enumerate(_waves(7000, 5100, seed=4)):
+        wav[i, :len(w)] = torch.from_numpy(w)
+    lengths = torch.tensor([7000, 5100]) if masked else None
+    with torch.no_grad():
+        got, got_lens = encoder(wav, lengths)
+        h, cur = wav[:, None, :], lengths
+        for i, (k, st) in enumerate(zip(cfg.conv_kernel, cfg.conv_stride)):
+            if cur is not None:
+                cur = torch.div(cur - k, st, rounding_mode="floor") + 1
+            conv, norm = getattr(encoder, f"conv_{i}"), getattr(encoder, f"norm_{i}")
+            h = conv1d(h, conv.weight, conv.bias, torch.float32, stride=st)
+            h = F.gelu(F.layer_norm(h.transpose(1, 2), (h.shape[1],), norm.weight, norm.bias,
+                                    norm.eps)).transpose(1, 2)
+        former = h.transpose(1, 2)
+    assert torch.equal(got, former) and got.stride() == former.stride()
+    assert calls == [(2, False, not conv_bias)] * 6
+    if masked:
+        assert torch.equal(got_lens, cur)
+
+
 # --- the kernel on the card -------------------------------------------------------------
 
 
