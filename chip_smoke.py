@@ -7,6 +7,7 @@
     python3 chip_smoke.py --featconv             # phase 8's strided convs, encoder batches
     python3 chip_smoke.py --posconv              # phase 8's positional conv, encoder batches
     python3 chip_smoke.py --wavlm                # phase 8's WavLM part and phase 15
+    python3 chip_smoke.py --conformer            # phase 8's Conformer part and phase 16
 
 Needs one CUDA device and ``nvcc`` (CUDA_HOME or PATH); exits non-zero
 without them. DIR holds every ``csrc`` source the phase builds: another
@@ -24,9 +25,10 @@ docstring says what it checks):
 6. training, the second main path (``training_phase``);
 7. train-step parity, card against CPU (``parity_phase``);
 8. K6/K7, the period march, Wav2Vec2's first block, strided convs and
-   positional conv and WavLM's biased softmax against their plain versions
-   (``viterbi_kernel_phase``, ``march_kernel_phase``, ``conv0_kernel_phase``,
-   ``featconv_kernel_phase``, ``posconv_kernel_phase``, ``wavlm_kernel_phase``);
+   positional conv, WavLM's biased softmax and the Conformer's shifted
+   softmax against their plain versions (``viterbi_kernel_phase``,
+   ``march_kernel_phase``, ``conv0_kernel_phase``, ``featconv_kernel_phase``,
+   ``posconv_kernel_phase``, ``wavlm_kernel_phase``, ``conformer_kernel_phase``);
 9. checkpoint and openSMILE, the third main path (``checkpoint_phase``,
    ``opensmile_phase``);
 10. cv, both CV engines and the lane-batched trials (``cv_phase``);
@@ -34,7 +36,8 @@ docstring says what it checks):
 12. w2v, the extraction that feeds the main path (``w2v_phase``);
 13. experiments, the reference's whole workflow (``experiments_phase``);
 14. multidevice, the multi-device code over one card (``multidevice_phase``);
-15. wavlm, WavLM-Large extraction (``wavlm_phase``).
+15. wavlm, WavLM-Large extraction (``wavlm_phase``);
+16. conformer, Wav2Vec2-Conformer-Large extraction (``conformer_phase``).
 
 A phase counts every kernel wrapper's launches with :func:`count_launches`
 and holds them to the units of work it ran with :func:`check_launches`
@@ -98,10 +101,11 @@ from robust_speech_analysis_framework_tpu_torch.ops.cuda import lstm as lstm_ops
 from robust_speech_analysis_framework_tpu_torch.ops.cuda import viterbi as viterbi_ops
 from robust_speech_analysis_framework_tpu_torch.ops.cuda import wav2vec2 as w2v_ops
 from robust_speech_analysis_framework_tpu_torch.ops.cuda import wavlm as wavlm_ops
+from robust_speech_analysis_framework_tpu_torch.ops.cuda import conformer as conformer_ops
 from robust_speech_analysis_framework_tpu_torch.serving import Predictor
 from robust_speech_analysis_framework_tpu_torch.train import loops
 
-from port_bench import wavlm_counts
+from port_bench import conformer_counts, wavlm_counts
 from port_bench.peaks import (
     PEAK_FP32_FLOPS,
     PEAK_HBM_BYTES,
@@ -165,6 +169,8 @@ CONV0_SOURCE = "robust_speech_analysis_framework_tpu_torch/csrc/feature_conv0.cu
 JAX_CONV0 = "robust_speech_analysis_framework_tpu/models/wav2vec2.py:102"
 WAVLM_SOURCE = "robust_speech_analysis_framework_tpu_torch/csrc/wavlm_relpos.cu"
 JAX_WAVLM = "none: the JAX package has no WavLM"
+CONFORMER_SOURCE = "robust_speech_analysis_framework_tpu_torch/csrc/conformer_relpos.cu"
+JAX_CONFORMER = "none: the JAX package has no Conformer"
 # an extraction batch: 16 chunks of 5 s at 16 kHz, ragged as the cell's
 CONV0_SAMPLES = (80_000,) * 9 + (8_000, 43_217, 79_999, 12_345, 65_536, 8_000, 8_000)
 CONV0_CHANNELS = 512
@@ -274,6 +280,7 @@ UNIT_LAUNCHES = {
     "w2v2-batch": {"conv0_norm_gelu": 1, "feature_conv": 6, "pos_conv_gelu": 1},
     "w2v2-batch-bf16": {},
     "wavlm-batch": {"feature_conv": 6, "pos_conv_gelu": 1, "relpos_softmax": "num_layers"},
+    "conformer-batch": {"feature_conv": 6, "relpos_shift_softmax": "num_layers"},
     "opensmile-sub-batch": {"viterbi_forward_costs": 1, "viterbi_path": 1, "march_periods": 1},
     "mshds-pitch-pass": {"viterbi_forward_costs": 1, "viterbi_path": 1},
 }
@@ -2046,6 +2053,125 @@ def wavlm_kernel_phase(dev: torch.device) -> dict:
         "encoder_batch_ms": batch_ms, "encoder_peak_bytes": peak}}
 
 
+# B, heads, T and each row's valid keys: the Conformer cell's extraction batch of
+# 16 s chunks, and one of 5 s chunks (the extractor's default)
+CONFORMER_SHAPES = ((16, 16, 799, WAVLM_FRAMES),
+                    (16, 16, 249, (249,) * 12 + (199, 124, 49, 24)))
+
+
+def conformer_bound_ms(frames, heads: int) -> tuple:
+    """Least time for one call of the Conformer's shifted softmax over rows of
+    ``frames`` real frames: the benchmark's bound (``port_bench.
+    conformer_counts``) for one layer, and which of bytes or operations
+    sets it."""
+    cfg = {"num_heads": heads, "num_layers": 1, "hidden_size": heads * conformer_ops.HEAD_SIZE}
+    return conformer_counts.relpos_score_bound(cfg, frames)
+
+
+def conformer_kernel_phase(dev: torch.device) -> dict:
+    """The Conformer's shifted relative-position softmax at each of
+    ``CONFORMER_SHAPES`` against its plain version (the published full
+    product, zero column, shifting view, mask and softmax), with times, its
+    bound, the plain version's time and the "library" chain (``transformers``'
+    own steps: the full product, ``cat``/``view`` shift, the sum with an
+    additive key mask, ``torch.softmax``), then one Wav2Vec2-Conformer-Large
+    encoder batch of 16 × 16 s: device ms, memory peak, its launches (one
+    encoder-batch unit) and a profile by kernel."""
+    from robust_speech_analysis_framework_tpu_torch.models.conformer import (
+        ConformerConfig, ConformerModel)
+    from robust_speech_analysis_framework_tpu_torch.models.init import init_weights_
+
+    shapes = {}
+    for b, h, t, frames in CONFORMER_SHAPES:
+        gen = torch.Generator(device=dev).manual_seed(t)
+        scores = 2.0 * torch.randn(b, h, t, t, generator=gen, device=dev)
+        q = (0.5 * torch.randn(b, t, h, conformer_ops.HEAD_SIZE, generator=gen, device=dev)
+             ).transpose(1, 2)  # the projection's layout, as the encoder hands it over
+        pos = 0.5 * torch.randn(2 * t - 1, h, conformer_ops.HEAD_SIZE, generator=gen, device=dev)
+        lengths = torch.tensor(frames, dtype=torch.int32, device=dev)
+        mask_bias = torch.where(torch.arange(t, device=dev)[None, :] < lengths[:, None].long(),
+                                0.0, torch.finfo(torch.float32).min)[:, None, None, :]
+
+        def library():
+            bd = torch.matmul(q, pos.permute(1, 2, 0))
+            padded = torch.cat([torch.zeros(b, h, t, 1, device=dev), bd], dim=-1)
+            bd = padded.view(b, h, 2 * t, t)[:, :, 1:].view_as(bd)[..., :t]
+            return torch.softmax(scores + bd + mask_bias, dim=-1)
+
+        with torch.inference_mode():
+            ref = conformer_ops.relpos_shift_softmax_reference(scores, q, pos, lengths)
+            work = scores.clone()
+            with count_launches() as launched:
+                got = conformer_ops.relpos_shift_softmax(work, q, pos, lengths)
+            torch.cuda.synchronize()
+            counted = launched["relpos_shift_softmax"]
+            abs_err = float((got - ref).abs().max())
+            lib_err = float((library() - ref).abs().max())
+            again = conformer_ops.relpos_shift_softmax(scores.clone(), q, pos, lengths)
+            same = torch.equal(again, got)
+            log(f"[conformer] B={b} H={h} T={t}: kernel vs plain version max|d| = {abs_err:.3e} "
+                f"(tol {KERNEL_TOL}; the library chain {lib_err:.3e}); {counted} count a call; "
+                f"two calls bit-equal: {same}")
+            if not (abs_err <= KERNEL_TOL and counted == 1 and same):
+                raise AssertionError("relpos_shift_softmax disagrees with its plain version")
+            del ref, again
+            # in place: each timed call overwrites the same buffer, as the encoder's does
+            ms = cuda_ms(lambda: conformer_ops.relpos_shift_softmax(work, q, pos, lengths), 50)
+            plain_ms = cuda_ms(lambda: conformer_ops.relpos_shift_softmax_reference(
+                scores, q, pos, lengths), 5)
+            library_ms = cuda_ms(library, 5)
+            bound, by = conformer_bound_ms(frames, h)
+            full, _ = conformer_bound_ms((t,) * b, h)
+            log(f"[conformer] kernel {ms:.4f} ms ({bound / ms:.1%} of its bound {bound:.4f} ms "
+                f"by {by} over real pairs; {full / ms:.1%} of {full:.4f} ms over every pair); "
+                f"plain version {plain_ms:.3f} ms; library chain {library_ms:.3f} ms")
+            profile_device(f"one relpos_shift_softmax call at T={t}",
+                           lambda: conformer_ops.relpos_shift_softmax(work, q, pos, lengths), 4)
+            del scores, work, got
+        torch.cuda.empty_cache()
+        shapes[f"B={b} H={h} T={t}"] = {
+            "max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound, "bound_by": by, "bound_every_pair_ms": full}
+
+    model = ConformerModel(ConformerConfig())
+    init_weights_(model, torch.Generator().manual_seed(0))
+    model = model.to(dev).eval()
+    rng = np.random.default_rng(27)
+    samples = np.array([256000] * 12 + [208000, 128000, 48000, 8000])
+    wav = torch.from_numpy((0.1 * rng.normal(size=(len(samples), 256000))).astype(np.float32))
+    for i, n in enumerate(samples):
+        wav[i, n:] = 0.0
+    wav, n_samples = wav.to(dev), torch.from_numpy(samples).to(dev)
+
+    def encode():
+        with torch.inference_mode():
+            return model(wav, n_samples)
+
+    encode()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with count_launches() as launches:
+        hidden, frames = encode()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
+    finite = bool(torch.isfinite(hidden).all())
+    del hidden
+    batch_ms = cuda_ms(encode, 3)
+    log(f"[conformer] encoder batch 16 x 256,000 (Wav2Vec2-Conformer-Large, fp32): "
+        f"{batch_ms:.2f} ms, memory peak {peak / 1e9:.2f} GB, frames {frames.tolist()}, "
+        f"finite {finite}")
+    check_launches("conformer encoder batch", launches, {"conformer-batch": 1}, model.config)
+    if not finite:
+        raise AssertionError("the Conformer encoder batch is not finite")
+    profile_device("one Wav2Vec2-Conformer-Large encoder batch", encode, 16)
+    del model
+    torch.cuda.empty_cache()
+    first, rec = next(iter(shapes.items()))  # the cell's batch
+    return {"relpos_shift_softmax": {
+        **rec, "max_abs_err": max(r["max_abs_err"] for r in shapes.values()), "shape": first,
+        "shapes": shapes, "encoder_batch_ms": batch_ms, "encoder_peak_bytes": peak}}
+
+
 def march_kernel_phase(dev: torch.device) -> dict:
     """The period march kernel (``march_periods``) at the openSMILE corpus's
     largest sub-batch (4 files of 44–52 s, their F0 from the pitch chain on
@@ -2932,17 +3058,33 @@ WAVLM_READING_S = (88.0, 70.0, 52.0, 37.0, 20.0, 9.5)
 
 
 def wavlm_phase(dev: torch.device) -> dict:
-    """WavLM-Large extraction (the WavLM cell's path): a full-width
-    random-init ``WavLMConfig`` extractor (16 s chunks every 15 s, batches
-    of 16, float32) over six speech-like reading recordings through
-    ``extract_sequences``, ``extract_sequences_resident`` and
-    ``extract_embeddings_arrays``, a WavLM encoder-batch unit of launches
-    each (the biased softmax once a layer, the positional conv once);
-    (T, 1024) rows; the resident buffer and the embeddings against
-    the sequences; walls and peak memory. Returns the launches."""
+    """WavLM-Large extraction (the WavLM cell's path): :func:`large_extraction_phase`
+    with a full-width ``WavLMConfig``, a WavLM encoder-batch unit of launches
+    a batch (the biased softmax once a layer, the positional conv once).
+    Returns the launches."""
     from robust_speech_analysis_framework_tpu_torch.models.wavlm import WavLMConfig
 
-    config = WavLMConfig()
+    return large_extraction_phase(dev, "wavlm", WavLMConfig(), "wavlm-batch")
+
+
+def conformer_phase(dev: torch.device) -> dict:
+    """Wav2Vec2-Conformer-Large extraction (the Conformer cell's path):
+    :func:`large_extraction_phase` with a full-width ``ConformerConfig``, a
+    Conformer encoder-batch unit of launches a batch (the shifted softmax once
+    a layer, conv_1–6 once each). Returns the launches."""
+    from robust_speech_analysis_framework_tpu_torch.models.conformer import ConformerConfig
+
+    return large_extraction_phase(dev, "conformer", ConformerConfig(), "conformer-batch")
+
+
+def large_extraction_phase(dev: torch.device, label: str, config, unit: str) -> dict:
+    """A full-width random-init extractor of ``config`` (16 s chunks every
+    15 s, batches of 16, float32) over six speech-like reading recordings
+    through ``extract_sequences``, ``extract_sequences_resident`` and
+    ``extract_embeddings_arrays``, ``unit`` of launches (``UNIT_LAUNCHES``)
+    each encoder batch; (T, hidden) rows; the resident buffer and the
+    embeddings against the sequences; walls and peak memory. Returns the
+    launches."""
     extractor = Wav2Vec2Extractor(config=config, chunk_seconds=16.0, overlap_seconds=1.0,
                                   batch_size=W2V_BATCH, allow_random_init=True, seed=0,
                                   device=dev)
@@ -2968,24 +3110,24 @@ def wavlm_phase(dev: torch.device) -> dict:
         finally:
             del extractor._encode  # the bound method again
     peak = torch.cuda.max_memory_allocated(dev)
-    log(f"[wavlm] {len(waves)} reading recordings ({audio_s:.1f} audio-s) in 16 s chunks: "
+    log(f"[{label}] {len(waves)} reading recordings ({audio_s:.1f} audio-s) in 16 s chunks: "
         f"extract_sequences {seq_s:.3f} s ({audio_s / seq_s:.1f} audio-s/s; first, cold "
         f"{first_s:.3f} s), extract_sequences_resident {res_s:.3f} s, "
         f"extract_embeddings_arrays {emb_s:.3f} s; peak memory {peak / 1e9:.2f} GB")
     if not encodes[0] > 0:
-        raise AssertionError("the WavLM extractions ran no encoder batch")
-    check_launches("wavlm", launches, {"wavlm-batch": encodes[0]}, config)
+        raise AssertionError(f"the {label} extractions ran no encoder batch")
+    check_launches(label, launches, {unit: encodes[0]}, config)
     shapes = {n: seqs[n].shape for n in waves}
     frames = {n: int(res.lengths[res.row(n)]) for n in waves}
     res_err = max(float(np.abs(res[n] - seqs[n]).max()) for n in waves)
     emb_err = float(np.abs(means - np.stack([seqs[n].mean(0) for n in names])).max())
-    log(f"[wavlm] sequences {shapes}; resident rows vs the sequences max|d|={res_err:.3e} (tol "
+    log(f"[{label}] sequences {shapes}; resident rows vs the sequences max|d|={res_err:.3e} (tol "
         f"{W2V_RESIDENT_TOL}); embeddings {means.shape} vs the sequences' means "
         f"max|d|={emb_err:.3e} (tol {W2V_EMB_TOL})")
     if not (all(shapes[n] == (frames[n], config.hidden_size) for n in waves)
             and all(np.isfinite(seqs[n]).all() for n in waves) and names == list(waves)
             and res_err <= W2V_RESIDENT_TOL and emb_err <= W2V_EMB_TOL):
-        raise AssertionError("the WavLM entry points disagree with one another")
+        raise AssertionError(f"the {label} entry points disagree with one another")
     del extractor, res
     torch.cuda.empty_cache()
     return launches
@@ -3675,6 +3817,7 @@ def run(dev: torch.device, smi: str) -> None:
     records.update(posconv_kernel_phase(dev))
     records.update(featconv_kernel_phase(dev))
     records.update(wavlm_kernel_phase(dev))
+    records.update(conformer_kernel_phase(dev))
     flagship_phase(dev)
     with tempfile.TemporaryDirectory() as tmp:
         serving = serving_phase(dev, tmp)
@@ -3684,6 +3827,7 @@ def run(dev: torch.device, smi: str) -> None:
         w2v = w2v_phase(dev, tmp)
         experiments = experiments_phase(dev, tmp)
     wavlm = wavlm_phase(dev)
+    conformer = conformer_phase(dev)
     parity_phase(dev)
     with tempfile.TemporaryDirectory() as tmp:
         checkpoint_phase(dev, tmp)
@@ -3706,12 +3850,14 @@ def run(dev: torch.device, smi: str) -> None:
         ("feature_conv", FEATCONV_SOURCE, JAX_FEATCONV),
         ("pos_conv_gelu", POSCONV_SOURCE, JAX_POSCONV),
         ("relpos_softmax", WAVLM_SOURCE, JAX_WAVLM),
+        ("relpos_shift_softmax", CONFORMER_SOURCE, JAX_CONFORMER),
     ):
         rec = records[name]
         by_path = {"serving": serving[name], "training": training[name], "cv": cv[name],
                    "cv-lanes": cv_lanes[name], "opensmile": opensmile[name],
                    "mshds": mshds[name], "w2v": w2v[name], "experiments": experiments[name],
-                   "multidevice": multidevice[name], "wavlm": wavlm[name]}
+                   "multidevice": multidevice[name], "wavlm": wavlm[name],
+                   "conformer": conformer[name]}
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(by_path.values()),
@@ -3724,7 +3870,7 @@ def run(dev: torch.device, smi: str) -> None:
                                    "boundaries_equal", "periods_longest_lane", "us_a_period",
                                    "phases", "conv_ms", "chain_ms", "bound_every_pair_ms",
                                    "encoder_batch_ms", "encoder_peak_bytes", "tflops", "tile",
-                                   "tiles", "wavlm", "convs", "matmul_ms")
+                                   "tiles", "wavlm", "convs", "matmul_ms", "shapes")
                if k in rec},
         })
     log(f"[card] {smi}")
@@ -3841,6 +3987,24 @@ def wavlm_only() -> None:
     print(json.dumps(record))
 
 
+def conformer_only() -> None:
+    """``--conformer``: the Conformer's kernel and encoder batch phase and
+    its extraction path (phase 8's last part and phase 16 alone); prints the
+    kernel's record with the path's launches."""
+    t0 = time.perf_counter()
+    _build.build_all()
+    log(f"[build] nvcc for {_build.sources()}: {time.perf_counter() - t0:.2f} s")
+    for line in ptxas_report(_build.build_logs.get("conformer_relpos", "")):
+        log(f"[build] conformer_relpos: {line}")
+    torch.backends.cuda.matmul.fp32_precision = "ieee"
+    torch.backends.cudnn.conv.fp32_precision = "ieee"
+    dev = torch.device("cuda", 0)
+    record = conformer_kernel_phase(dev)
+    record["relpos_shift_softmax"]["launches_by_path"] = {
+        "conformer": conformer_phase(dev)["relpos_shift_softmax"]}
+    print(json.dumps(record))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs one CUDA device",
@@ -3872,6 +4036,11 @@ def main() -> int:
     if len(sys.argv) > 1 and sys.argv[1] == "--wavlm":
         log(f"[card] {smi}")
         wavlm_only()
+        log(f"[card] {smi}")
+        return 0
+    if len(sys.argv) > 1 and sys.argv[1] == "--conformer":
+        log(f"[card] {smi}")
+        conformer_only()
         log(f"[card] {smi}")
         return 0
     if len(sys.argv) > 1 and sys.argv[1] == "--train-kernels":

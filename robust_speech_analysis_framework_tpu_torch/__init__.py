@@ -22,11 +22,11 @@ the experiment battery and CLI, and multi-device runs:
               moments, Burg formants, pitch-corrected LTAS and CPPS
   ops/cuda/   the LSTM kernels (csrc/lstm_scan.cu, csrc/lstm_train.cu) and the
               Viterbi path finder (csrc/viterbi.cu), each with its plain version
-  models/     CNN-LSTM, Wav2Vec2-base, WavLM-Large, weight carry from the JAX
-              package
-  features/   Wav2Vec2 and WavLM sequences (quantised downloads, the bf16 preset,
-              resident extraction) and embeddings, openSMILE-912 and MSHDS-25 features,
-              the conf parser
+  models/     CNN-LSTM, Wav2Vec2-base, WavLM-Large, Wav2Vec2-Conformer-Large,
+              weight carry from the JAX package
+  features/   Wav2Vec2, WavLM and Conformer sequences (quantised downloads, the bf16
+              preset, resident extraction) and embeddings, openSMILE-912 and MSHDS-25
+              features, the conf parser
   train/      the fold trainer (streaming and device-resident) and checkpoints
   eval/       splits, metrics and the CNN-LSTM cross-validation engines
   tune/       the TPE sampler

@@ -34,8 +34,10 @@ host memory, ordered by CUDA events (the JAX package overlaps the same
 stages with ``max_inflight`` dispatches and a fetch thread pool). A card
 error propagates: there is no retry and no host fallback.
 
-A ``WavLMConfig`` (``models/wavlm.py``) runs WavLM-Large through the same
-chunking, batches, pipeline and entry points, in float32.
+A ``WavLMConfig`` (``models/wavlm.py``) runs WavLM-Large, a
+``ConformerConfig`` (``models/conformer.py``) Wav2Vec2-Conformer-Large with
+relative positions, through the same chunking, batches, pipeline and entry
+points, in float32.
 """
 
 from __future__ import annotations
@@ -54,8 +56,11 @@ from ..device import DeviceLike, resolve_device
 from ..models.init import init_weights_
 from ..models.wav2vec2 import (ShardedWav2Vec2, Wav2Vec2Config, Wav2Vec2Model,
                                port_hf_state_dict)
+from ..models.conformer import (ConformerConfig, ConformerModel, conformer_config_from_hf,
+                                port_hf_conformer_state_dict)
 from ..models.wavlm import (WavLMConfig, WavLMModel, port_hf_wavlm_state_dict,
                             wavlm_config_from_hf)
+from ..ops.cuda.conformer import check_frames
 from ..parallel.mesh import DeviceGrid
 from ..train.loops import _aligned_length
 from ..utils.profiling import count, span, spanned
@@ -64,6 +69,20 @@ SAMPLE_RATE = 16000
 MIN_SECONDS = 0.5
 # batches in flight on the card: upload k+1, forward k, download k-1
 PIPELINE_DEPTH = 2
+# the encoder each config class names (a subclass takes its nearest base's)
+ENCODERS = {Wav2Vec2Config: Wav2Vec2Model, WavLMConfig: WavLMModel,
+            ConformerConfig: ConformerModel}
+# transformers' model_type → (its backbone class, config reader, state-dict port)
+_HF_ROUTES = {
+    "wavlm": ("WavLMModel", wavlm_config_from_hf, port_hf_wavlm_state_dict),
+    "wav2vec2-conformer": ("Wav2Vec2ConformerModel", conformer_config_from_hf,
+                           port_hf_conformer_state_dict),
+}
+
+
+def encoder_class(config: Wav2Vec2Config) -> type:
+    """The encoder module ``config``'s class names (:data:`ENCODERS`)."""
+    return next(ENCODERS[c] for c in type(config).__mro__ if c in ENCODERS)
 
 
 @dataclass
@@ -151,13 +170,17 @@ def _copy_frames(dst: torch.Tensor, src: torch.Tensor, dst_rows: np.ndarray,
 class Wav2Vec2Extractor:
     """Reusable extractor owning the encoder and its weights.
 
-    The encoder is the one ``config``'s class names: Wav2Vec2 for a
-    ``Wav2Vec2Config``, WavLM for a
-    :class:`..models.wavlm.WavLMConfig` (float32 only; a ``mesh`` with
-    mp > 1 raises for it). ``params`` is a state dict for that encoder (e.g.
-    from :func:`..models.weights.wav2vec2_state_dict_from_flat`,
-    :func:`..models.wav2vec2.port_hf_state_dict` or
-    :func:`..models.wavlm.port_hf_wavlm_state_dict`). Without weights it raises
+    The encoder is the one ``config``'s class names (:data:`ENCODERS`):
+    Wav2Vec2 for a ``Wav2Vec2Config``, WavLM for a
+    :class:`..models.wavlm.WavLMConfig`, the Conformer for a
+    :class:`..models.conformer.ConformerConfig` (the last two float32 only;
+    a ``mesh`` with mp > 1 raises for them; on a card the Conformer raises
+    for chunks over the kernel's 1024 frames, ``chunk_seconds`` > 20.485). ``params`` is a state dict for
+    that encoder (e.g. from
+    :func:`..models.weights.wav2vec2_state_dict_from_flat`,
+    :func:`..models.wav2vec2.port_hf_state_dict`,
+    :func:`..models.wavlm.port_hf_wavlm_state_dict` or
+    :func:`..models.conformer.port_hf_conformer_state_dict`). Without weights it raises
     unless ``allow_random_init=True`` (tests / throughput runs), in which case
     the weights are drawn from ``torch.Generator().manual_seed(seed)``, a
     warning is emitted and ``.pretrained`` is False.
@@ -199,9 +222,10 @@ class Wav2Vec2Extractor:
     ):
         if mesh is not None and batch_size % mesh.dp != 0:
             raise ValueError(f"batch_size {batch_size} not divisible by dp={mesh.dp}")
-        if mesh is not None and mesh.mp > 1 and isinstance(config, WavLMConfig):
-            raise ValueError(f"WavLM is not split over mp > 1 devices (mp={mesh.mp}): "
-                             "give it a mesh with mp=1, or none")
+        encoder = encoder_class(config)
+        if mesh is not None and mesh.mp > 1 and encoder is not Wav2Vec2Model:
+            raise ValueError(f"{encoder.__name__} is not split over mp > 1 devices "
+                             f"(mp={mesh.mp}): give it a mesh with mp=1, or none")
         self.mesh = mesh
         self.device = resolve_device(device) if mesh is None else mesh.lead
         if compute_dtype is not None and compute_dtype != config.compute_dtype:
@@ -224,12 +248,14 @@ class Wav2Vec2Extractor:
             )
         self.chunk_size = int(SAMPLE_RATE * chunk_seconds)
         self.step_size = int(SAMPLE_RATE * (chunk_seconds - overlap_seconds))
+        if encoder is ConformerModel:  # the card kernel's frame limit, before any audio
+            check_frames(config.output_length(self.chunk_size), self.device)
         self.min_samples = int(SAMPLE_RATE * MIN_SECONDS)
         self.batch_size = batch_size
         # Applied PER CHUNK, as the reference runs its processor per chunk.
         self.normalize = normalize
         self.pretrained = params is not None
-        model = WavLMModel(config) if isinstance(config, WavLMConfig) else Wav2Vec2Model(config)
+        model = encoder(config)
         if params is None:
             if not allow_random_init:
                 raise ValueError(
@@ -258,15 +284,17 @@ class Wav2Vec2Extractor:
         """Load weights from a local HuggingFace checkpoint directory
         (needs the ``transformers`` package). A checkpoint whose
         ``model_type`` is ``"wavlm"`` (the Large layout) gives a WavLM
-        extractor, its ``config`` read from the checkpoint unless given."""
-        from transformers import AutoConfig
+        extractor, one whose ``model_type`` is ``"wav2vec2-conformer"``
+        (relative positions, layer-norm convs) a Conformer extractor, each
+        with its ``config`` read from the checkpoint unless given."""
+        import transformers
 
-        if AutoConfig.from_pretrained(checkpoint_path_or_name).model_type == "wavlm":
-            from transformers import WavLMModel as HFWavLM
-
-            hf = HFWavLM.from_pretrained(checkpoint_path_or_name)
-            kwargs.setdefault("config", wavlm_config_from_hf(hf.config))
-            return cls(params=port_hf_wavlm_state_dict(hf.state_dict()), **kwargs)
+        model_type = transformers.AutoConfig.from_pretrained(checkpoint_path_or_name).model_type
+        if model_type in _HF_ROUTES:
+            backbone, config_from_hf, port = _HF_ROUTES[model_type]
+            hf = getattr(transformers, backbone).from_pretrained(checkpoint_path_or_name)
+            kwargs.setdefault("config", config_from_hf(hf.config))
+            return cls(params=port(hf.state_dict()), **kwargs)
         from transformers import Wav2Vec2Model as HFModel
 
         hf = HFModel.from_pretrained(checkpoint_path_or_name)

@@ -181,12 +181,15 @@ def _attention(x: torch.Tensor, q: tuple, k: tuple, v: tuple, heads: int, q_scal
                ) -> torch.Tensor:
     """Multi-head attention's context (B, T, heads · head_dim) in ``cdt``,
     before the output projection; ``q``/``k``/``v`` are (weight, bias) of
-    ``heads`` heads (all of a layer's, or an mp slice of them).
-    ``normalize`` (the scores (B, heads, T, T) → probabilities) takes the
-    place of ``attn_bias`` and the softmax (WavLM's biased softmax)."""
+    ``heads`` heads (all of a layer's, or an mp slice of them); ``q`` may
+    instead be the queries already projected and scaled, (B, T, heads ·
+    head_dim) in ``cdt`` (the Conformer's biased queries; ``q_scale`` is then
+    unused). ``normalize`` (the scores (B, heads, T, T) → probabilities)
+    takes the place of ``attn_bias`` and the softmax (WavLM's and the
+    Conformer's biased softmaxes)."""
     b, t, _ = x.shape
     split = lambda y: y.reshape(b, t, heads, -1).transpose(1, 2)  # noqa: E731
-    qh = split(_linear(x, *q, cdt) * q_scale)
+    qh = split(q if isinstance(q, torch.Tensor) else _linear(x, *q, cdt) * q_scale)
     kh = split(_linear(x, *k, cdt))
     vh = split(_linear(x, *v, cdt))
     # scores and softmax in float32 whatever the compute dtype
@@ -264,7 +267,9 @@ class ShardedWav2Vec2:
     def __init__(self, model: Wav2Vec2Model, mesh):
         from ..parallel.sharding import place_params, shard_params
 
-        params = {n: p.detach() for n, p in model.named_parameters()}
+        # parameters and buffers (the Conformer's BatchNorm statistics), each
+        # row's copy on its own devices
+        params = {n: p.detach() for n, p in (*model.named_parameters(), *model.named_buffers())}
         self.model = model
         self.mesh = mesh
         self.config = model.config

@@ -14,6 +14,7 @@ KERNELS = {
     "lstm_scan_grouped", "lstm_scan", "lstm_scan_fwd_res_grouped", "lstm_scan_bwd_grouped",
     "lstm_gate_acts_grouped", "lstm_dwh_grouped", "viterbi_forward_costs", "viterbi_path",
     "march_periods", "conv0_norm_gelu", "feature_conv", "pos_conv_gelu", "relpos_softmax",
+    "relpos_shift_softmax",
 }
 
 
